@@ -1,0 +1,111 @@
+"""Command-line entry point — the analog of the reference's ``main()``
+(ref main.cpp:457-690), with the flags of sfvp_tpu.cli whose features are
+ported (defaults = reference values).
+
+Example:
+    python -m sfvp_tpu_torch.cli --device cuda --steps 32 --out cornell.png
+
+Flags of features not ported yet (--nee, --mis, --env-map, --lens-radius,
+--focus-dist, --dist, --adaptive, procedural --scene values) raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from .config import CameraConfig, RenderConfig
+from .render.driver import Renderer
+from .scene import cornell_box_path, load_obj
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="sfvp_tpu_torch", description=__doc__)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda runs the CUDA kernels, cpu "
+                        "their plain PyTorch twins")
+    p.add_argument("--obj", default=None, help="OBJ scene path (default: bundled Cornell Box)")
+    p.add_argument("--scene",
+                   choices=["cornell", "sphere", "terrain", "city",
+                            "instanced"],
+                   default="cornell",
+                   help="test scene when --obj is not given (only cornell "
+                        "is ported)")
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--height", type=int, default=1024)
+    p.add_argument("--steps", type=int, default=32, help="progressive steps to run")
+    p.add_argument("--spp", type=int, default=32, help="samples per step")
+    p.add_argument("--max-depth", type=int, default=8)
+    p.add_argument("--spp-chunk", type=int, default=1)
+    p.add_argument("--sampling", choices=["uniform", "cosine"], default="uniform")
+    p.add_argument("--rr", action="store_true", help="enable Russian roulette")
+    p.add_argument("--out", default="render.png")
+    p.add_argument("--srgb", action="store_true", help="sRGB-encode the PNG (default: unorm clamp like the reference swapchain)")
+    p.add_argument("--frame-every", type=int, default=0, help="write intermediate PNG every N steps")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--log", default=None, help="JSONL metrics sink")
+    p.add_argument("--quiet", action="store_true")
+    # not ported yet: each raises NotImplementedError when used
+    p.add_argument("--nee", action="store_true")
+    p.add_argument("--mis", action="store_true")
+    p.add_argument("--env-map", default=None)
+    p.add_argument("--lens-radius", type=float, default=0.0)
+    p.add_argument("--focus-dist", type=float, default=0.0)
+    p.add_argument("--dist", action="store_true")
+    p.add_argument("--adaptive", type=float, default=None, metavar="FRAC")
+    return p
+
+
+_NOT_PORTED = {
+    "nee": "next-event estimation (ROADMAP.md A.11)",
+    "mis": "MIS (ROADMAP.md A.11)",
+    "env_map": "environment maps (ROADMAP.md A.13)",
+    "lens_radius": "thin-lens depth of field (ROADMAP.md A.12)",
+    "focus_dist": "thin-lens depth of field (ROADMAP.md A.12)",
+    "dist": "multi-device rendering (ROADMAP.md A.17)",
+    "adaptive": "adaptive sampling (ROADMAP.md A.16)",
+}
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for flag, what in _NOT_PORTED.items():
+        if getattr(args, flag) not in (None, False, 0.0):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')}: {what} is not ported to "
+                "sfvp_tpu_torch yet")
+    if args.obj is None and args.scene != "cornell":
+        raise NotImplementedError(
+            f"--scene {args.scene}: procedural scenes and the BVH they need "
+            "are not ported to sfvp_tpu_torch yet (ROADMAP.md A.9)")
+    cfg = RenderConfig(
+        width=args.width,
+        height=args.height,
+        spp_per_step=args.spp,
+        max_depth=args.max_depth,
+        spp_chunk=args.spp_chunk,
+        sampling=args.sampling,
+        use_rr=args.rr,
+        camera=CameraConfig(),
+    )
+    scene = load_obj(args.obj or cornell_box_path())
+    r = Renderer(cfg, scene, args.device)
+    if args.resume and args.checkpoint:
+        r.resume(args.checkpoint)
+    r.run(
+        steps=args.steps,
+        out=args.out,
+        frame_every=args.frame_every,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+        log_path=args.log,
+        srgb=args.srgb,
+        progress=not args.quiet,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

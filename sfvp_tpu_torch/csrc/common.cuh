@@ -1,0 +1,254 @@
+// Device functions shared by the brute-force path-tracing kernels
+// (regen_render.cu = K1, wave_render.cu = K2): bit-exact PCG, the camera
+// ray, Moller-Trumbore closest hit against a scene table in shared memory,
+// and one path segment (shade, sample the next direction, roulette).
+//
+// 1/sqrt is 1.0f / sqrtf(x), two correctly rounded ops, never the
+// approximate rsqrtf (see utils/vec.py inv_sqrt).
+//
+// Every expression keeps the operation order of the plain PyTorch twin
+// (sfvp_tpu_torch/integrate/wavefront.py, which in turn keeps that of the
+// JAX package), and the library is built with -fmad=false: with no fused
+// multiply-adds each float op rounds as the twin's does, so the kernels can
+// agree with the twins bit for bit on the card.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace sfvp {
+
+// Launch parameters; mirrored field for field by kernels/build.py Params.
+struct Params {
+  int frame, row0, gw, gh, npix, spp, max_depth, uniform, use_rr, rr_start;
+  int chunk, chunk_idx, num_tris, tp;
+  float t_min, t_max, inv2w, inv2h, two_pi, uniform_scale, det_eps;
+  float cam_c[3], cam_r[3], cam_u[3], cam_o[3], sky[3];
+};
+
+// Shared-memory scene table, row-major [row][num_tris]: rows 0-18 are the
+// host table's (v0 v1 v2 xyz, Kd, Ke, Ks, mtype), rows 19-24 the edges
+// e1 = v1 - v0 and e2 = v2 - v0, computed once per block.
+constexpr int kSmemRows = 25;
+constexpr int kBlock = 128;
+
+__device__ __forceinline__ void load_table(float* tab, const float* table,
+                                           const Params& p) {
+  const int T = p.num_tris;
+  for (int j = threadIdx.x; j < T; j += blockDim.x) {
+    for (int r = 0; r < 19; ++r) tab[r * T + j] = table[r * p.tp + j];
+    for (int a = 0; a < 3; ++a) {
+      tab[(19 + a) * T + j] = tab[(3 + a) * T + j] - tab[a * T + j];
+      tab[(22 + a) * T + j] = tab[(6 + a) * T + j] - tab[a * T + j];
+    }
+  }
+}
+
+// ---- PCG, ref shaders/common.glsl:13-37 ----
+__device__ __forceinline__ uint32_t pcg(uint32_t& state) {
+  const uint32_t prev = state * 747796405u + 2891336453u;
+  const uint32_t word = ((prev >> ((prev >> 28u) + 4u)) ^ prev) * 277803737u;
+  state = prev;
+  return (word >> 22u) ^ word;
+}
+
+// float(u) * 2^-32: the reference's rand, including that it can return 1.0
+__device__ __forceinline__ float rand01(uint32_t& state) {
+  return __uint2float_rn(pcg(state)) * 0x1p-32f;
+}
+
+// seed = pcg2d(pixel * (sample + spp*frame + 1)), s.x + s.y
+// (ref shaders/raygen.rgen:47-48)
+__device__ __forceinline__ uint32_t sample_seed(int px, int py, int sample,
+                                                const Params& p) {
+  const uint32_t k = 1664525u, c = 1013904223u;
+  const uint32_t m = (uint32_t)sample + (uint32_t)p.spp * (uint32_t)p.frame + 1u;
+  uint32_t vx = (uint32_t)px * m, vy = (uint32_t)py * m;
+  vx = vx * k + c;
+  vy = vy * k + c;
+  vx = vx + vy * k;
+  vy = vy + vx * k;
+  vx = vx ^ (vx >> 16u);
+  vy = vy ^ (vy >> 16u);
+  vx = vx + vy * k;
+  vy = vy + vx * k;
+  vx = vx ^ (vx >> 16u);
+  vy = vy ^ (vy >> 16u);
+  return vx + vy;
+}
+
+struct Path {
+  float ox, oy, oz, dx, dy, dz;  // ray
+  float wr, wg, wb;              // throughput
+  uint32_t seed;
+};
+
+// Seed a sample and shoot its camera ray (ref shaders/raygen.rgen:50-57).
+__device__ __forceinline__ Path camera_path(int px, int py, int sample,
+                                            const Params& p) {
+  Path q;
+  q.seed = sample_seed(px, py, sample, p);
+  const float r1 = rand01(q.seed);
+  const float r2 = rand01(q.seed);
+  const float sx = ((float)px + r1) * p.inv2w - 1.0f;
+  const float sy = ((float)py + r2) * p.inv2h - 1.0f;
+  float dx = p.cam_c[0] + sx * p.cam_r[0] + sy * p.cam_u[0] - p.cam_o[0];
+  float dy = p.cam_c[1] + sx * p.cam_r[1] + sy * p.cam_u[1] - p.cam_o[1];
+  float dz = p.cam_c[2] + sx * p.cam_r[2] + sy * p.cam_u[2] - p.cam_o[2];
+  const float inv = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
+  q.dx = dx * inv;
+  q.dy = dy * inv;
+  q.dz = dz * inv;
+  q.ox = p.cam_o[0];
+  q.oy = p.cam_o[1];
+  q.oz = p.cam_o[2];
+  q.wr = q.wg = q.wb = 1.0f;
+  return q;
+}
+
+// Closest hit over every triangle; of equal t the lowest id wins.
+// Returns the triangle id, or -1 on a miss.
+__device__ __forceinline__ int closest_hit(const float* tab, const Params& p,
+                                           const Path& q, float& bu,
+                                           float& bv) {
+  const int T = p.num_tris;
+  float bt = __int_as_float(0x7f800000);  // +inf
+  int prim = -1;
+  bu = 0.0f;
+  bv = 0.0f;
+  for (int k = 0; k < T; ++k) {
+    const float e1x = tab[19 * T + k], e1y = tab[20 * T + k], e1z = tab[21 * T + k];
+    const float e2x = tab[22 * T + k], e2y = tab[23 * T + k], e2z = tab[24 * T + k];
+    const float pvx = q.dy * e2z - q.dz * e2y;
+    const float pvy = q.dz * e2x - q.dx * e2z;
+    const float pvz = q.dx * e2y - q.dy * e2x;
+    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+    const bool nonzero = fabsf(det) > p.det_eps;
+    const float inv_det = nonzero ? 1.0f / det : 0.0f;
+    const float tvx = q.ox - tab[k], tvy = q.oy - tab[T + k], tvz = q.oz - tab[2 * T + k];
+    const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+    const float qvx = tvy * e1z - tvz * e1y;
+    const float qvy = tvz * e1x - tvx * e1z;
+    const float qvz = tvx * e1y - tvy * e1x;
+    const float v = (q.dx * qvx + q.dy * qvy + q.dz * qvz) * inv_det;
+    const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+    if (nonzero && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > p.t_min &&
+        t < p.t_max && t < bt) {
+      bt = t;
+      bu = u;
+      bv = v;
+      prim = k;
+    }
+  }
+  return prim;
+}
+
+// One path segment: trace, add its radiance into (cr, cg, cb), then shade
+// and pick the next direction. Returns whether the path continues.
+// RR_EVERY_DEPTH: draw the roulette number at every depth (K1 and the
+// wavefront integrator) or only from rr_start on (K2).
+template <bool HAS_MIRRORS, bool RR_EVERY_DEPTH>
+__device__ __forceinline__ bool path_segment(const float* tab, const Params& p,
+                                             int depth, Path& q, float& cr,
+                                             float& cg, float& cb) {
+  const int T = p.num_tris;
+  float u, v;
+  const int k = closest_hit(tab, p, q, u, v);
+  if (k < 0) {  // miss: sky emission ends the path (ref miss.rmiss:8-12)
+    cr = cr + q.wr * p.sky[0];
+    cg = cg + q.wg * p.sky[1];
+    cb = cb + q.wb * p.sky[2];
+    return false;
+  }
+  // hit shading, ref shaders/closesthit.rchit:43-65
+  cr = cr + q.wr * tab[12 * T + k];
+  cg = cg + q.wg * tab[13 * T + k];
+  cb = cb + q.wb * tab[14 * T + k];
+  const float w = 1.0f - u - v;
+  const float posx = tab[k] * w + tab[3 * T + k] * u + tab[6 * T + k] * v;
+  const float posy = tab[T + k] * w + tab[4 * T + k] * u + tab[7 * T + k] * v;
+  const float posz = tab[2 * T + k] * w + tab[5 * T + k] * u + tab[8 * T + k] * v;
+  const float e1x = tab[19 * T + k], e1y = tab[20 * T + k], e1z = tab[21 * T + k];
+  const float e2x = tab[22 * T + k], e2y = tab[23 * T + k], e2z = tab[24 * T + k];
+  const float cx = e1y * e2z - e1z * e2y;
+  const float cy = e1z * e2x - e1x * e2z;
+  const float cz = e1x * e2y - e1y * e2x;
+  const float inv_len = 1.0f / sqrtf(cx * cx + cy * cy + cz * cz);
+  const float nx = -(cx * inv_len), ny = -(cy * inv_len), nz = -(cz * inv_len);
+
+  // next direction, ref shaders/raygen.rgen:14-39 (+ cosine variant)
+  const float r1 = rand01(q.seed);
+  const float r2 = rand01(q.seed);
+  const bool use_x = fabsf(nx) > fabsf(ny);
+  const float inv_a = 1.0f / sqrtf(nx * nx + nz * nz);
+  const float inv_b = 1.0f / sqrtf(ny * ny + nz * nz);
+  const float tx = use_x ? nz * inv_a : 0.0f;
+  const float ty = use_x ? 0.0f : -nz * inv_b;
+  const float tz = use_x ? -nx * inv_a : ny * inv_b;
+  const float bx = ny * tz - nz * ty;
+  const float by = nz * tx - nx * tz;
+  const float bz = nx * ty - ny * tx;
+  float sq, lz;
+  if (p.uniform) {
+    sq = sqrtf(fmaxf(1.0f - r1 * r1, 0.0f));
+    lz = r1;
+  } else {
+    sq = sqrtf(fmaxf(r1, 0.0f));
+    lz = sqrtf(fmaxf(1.0f - r1, 0.0f));
+  }
+  const float phi = p.two_pi * r2;
+  const float lx = cosf(phi) * sq;
+  const float ly = sinf(phi) * sq;
+  float ndx = tx * lx + bx * ly + nx * lz;
+  float ndy = ty * lx + by * ly + ny * lz;
+  float ndz = tz * lx + bz * ly + nz * lz;
+  float sr = tab[9 * T + k], sg = tab[10 * T + k], sb = tab[11 * T + k];
+  if (p.uniform) {
+    const float s = p.uniform_scale * (ndx * nx + ndy * ny + ndz * nz);
+    sr = sr * s;
+    sg = sg * s;
+    sb = sb * s;
+  }
+  if (HAS_MIRRORS) {
+    const float mt = tab[18 * T + k];
+    if (mt > 0.5f && mt < 1.5f) {
+      // perfect mirror about the normal flipped toward the incoming ray
+      const bool flip = q.dx * nx + q.dy * ny + q.dz * nz > 0.0f;
+      const float fx = flip ? nx * -1.0f : nx;
+      const float fy = flip ? ny * -1.0f : ny;
+      const float fz = flip ? nz * -1.0f : nz;
+      const float kk = 2.0f * (q.dx * fx + q.dy * fy + q.dz * fz);
+      ndx = q.dx - fx * kk;
+      ndy = q.dy - fy * kk;
+      ndz = q.dz - fz * kk;
+      sr = tab[15 * T + k];
+      sg = tab[16 * T + k];
+      sb = tab[17 * T + k];
+    }
+  }
+  const bool rr_on = depth >= p.rr_start;
+  if (p.use_rr && (RR_EVERY_DEPTH || rr_on)) {
+    const float m = fmaxf(q.wr * sr, fmaxf(q.wg * sg, q.wb * sb));
+    const float pmax = fminf(fmaxf(m, 0.05f), 0.95f);
+    const float r_rr = rand01(q.seed);
+    if (rr_on) {
+      if (!(r_rr < pmax)) return false;
+      const float inv_p = 1.0f / pmax;
+      sr = sr * inv_p;
+      sg = sg * inv_p;
+      sb = sb * inv_p;
+    }
+  }
+  q.ox = posx;
+  q.oy = posy;
+  q.oz = posz;
+  q.dx = ndx;
+  q.dy = ndy;
+  q.dz = ndz;
+  q.wr = q.wr * sr;
+  q.wg = q.wg * sg;
+  q.wb = q.wb * sb;
+  return true;
+}
+
+}  // namespace sfvp
