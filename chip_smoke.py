@@ -5,7 +5,8 @@
 Phases, each of which raises (exit code 1, no result line) on failure:
   1. device   a CUDA device of compute capability 9.0 (Hopper), and the
               card's name and power limit from nvidia-smi;
-  2. build    nvcc builds the kernels K1 and K2 from csrc/;
+  2. build    nvcc builds the kernels K1, K2, K3 and K5 from
+              sfvp_tpu_torch/csrc/, one nvcc per source in parallel;
   3. twins    each kernel against its plain PyTorch twin at 256x256,
               depth 8: parity at 8 spp, cosine + Russian roulette, and a
               Cornell variant with mirror faces;
@@ -22,12 +23,43 @@ Phases, each of which raises (exit code 1, no result line) on failure:
               is held to its twin's with the bounds of phase 3 (for K2,
               all 32 one-sample launches of a step).
 
+The large-scene path (slice 2: the wide BVH, kernels K3 and K5), over the
+100k-triangle bumpy sphere of ``--scene sphere --scene-tris 100000``:
+  7. bvh twins   K3 against its twin on a 256x256 camera wave, a bounce
+                 wave and a wave of random rays: at least 99.99% of rays
+                 on the same triangle, every payload plane equal there;
+                 K5 against its twin at 128x128, 4 spp, depth 8, cosine +
+                 RR, on the sphere and on the mirror Cornell Box with
+                 traversal="bvh";
+  8. bvh oracle  K5 on the Cornell Box (traversal="bvh") at 128x128,
+                 32 spp x 32 steps against the numpy oracle; K5 against K1
+                 at 256x256, 8 spp;
+  9. bvh main    the CLI on the 100k sphere at 1024x1024, 8 spp, depth 8,
+                 cosine + RR (K5, K1 not launched); the Renderer with
+                 megakernel_regen=False (the wavefront loop over K3); the
+                 500k sphere at 512x512 (K5); each with its set-up
+                 seconds, step times and image mean;
+ 10. bvh times   K5 per step and K3 per launch (first-bounce and a later
+                 bounce wave) at the main path's shape, CUDA events, each
+                 beside its twin, and K5 held to its twin there;
+ 11. bvh 500k    K5 against its twin on the 500k sphere's LBVH tree at
+                 512x512, 8 spp, depth 8, cosine + RR, and K5's time per
+                 pixel and per segment on the 500k and 100k trees there;
+ 12. ray sort    the wavefront step over K3 at the main path's shape with
+                 the per-bounce ray sort on and off: times, same image.
+
+Each kernel's bound is the larger of the bytes it must move over 3.35
+TB/s and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's
+data-sheet rates); for the traversal kernels the operations are counted
+from the box and triangle tests the twins do on the same inputs.
+
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -39,6 +71,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 DEVICE = "cuda"
 MAIN_W = MAIN_H = 1024
 MAIN_SPP, MAIN_DEPTH, MAIN_STEPS, K2_STEPS = 32, 8, 8, 2
@@ -46,6 +79,24 @@ MAIN_SPP, MAIN_DEPTH, MAIN_STEPS, K2_STEPS = 32, 8, 8, 2
 # 1-ulp hit/miss flip, each moving one pixel by up to ~0.1)
 TWIN_REL_RMSE, TWIN_OFF_FRAC, TWIN_OFF_ABS, SEGS_REL = 1e-4, 1e-3, 1e-4, 1e-4
 ORACLE_REL_RMSE = 1e-4
+# the large-scene path
+SPHERE_TRIS, BIG_TRIS = 100_000, 500_000
+BVH_W = BVH_H = 1024
+BVH_SPP, BVH_DEPTH, BVH_STEPS, K3_STEPS, BIG_STEPS = 8, 8, 4, 1, 2
+BIG_W = BIG_H = 512
+BVH_TWIN_SIZE, BVH_TWIN_SPP, K5_K1_SIZE = 128, 4, 256
+SORT_ROUNDS, SORT_STEPS = 2, 2
+K3_SAME_TRI = 0.9999
+K5_TWIN_REL_RMSE, K5_K1_REL_RMSE = 1e-5, 1e-5
+# bounds: the H100 SXM data sheet's HBM rate and FP32 (non-tensor) peak
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+# FP32 operations a test takes, counted from the CUDA sources: a
+# Moller-Trumbore test with precomputed edges (common.cuh closest_hit) or
+# with its edges from the vertices (wide_bvh.cuh); one slab test of a
+# child box (6 sub, 6 mul, 12 min/max, 1 compare), and per node pop the
+# 19 compares of the sorting network; the shading of one segment (camera
+# ray or scatter, roulette, accumulation), rounded down
+TRI_OPS_TABLE, TRI_OPS_ROWS, BOX_OPS, SORT_OPS, SHADE_OPS = 55, 61, 25, 19, 80
 
 
 def check(cond, msg):
@@ -54,17 +105,18 @@ def check(cond, msg):
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.0f} s)", flush=True)
 
 
 def rel_rmse(a, b):
     return float(torch.sqrt(((a - b) ** 2).mean()) / torch.sqrt((b ** 2).mean()))
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=True):
     """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events, after
-    one warm-up run; and the last run's result."""
-    fn()
+    one warm-up run unless ``warm`` is off; and the last run's result."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -163,10 +215,11 @@ def twin_phase():
     return worst
 
 
-def compare(label, got, exp, spp):
+def compare(label, got, exp, spp, rel_bound=TWIN_REL_RMSE):
     """Hold a kernel's (colr, colg, colb, segs) per-pixel totals over
-    ``spp`` samples against its twin's with the card bounds; print the
-    measured values and return the largest absolute pixel difference."""
+    ``spp`` samples against its twin's with the card bounds (relative
+    RMSE below ``rel_bound``); print the measured values and return the
+    largest absolute pixel difference."""
     img_g = torch.stack(got[:3], -1) / spp
     img_e = torch.stack(exp[:3], -1) / spp
     diff = (img_g - img_e).abs()
@@ -178,23 +231,35 @@ def compare(label, got, exp, spp):
     mx = float(diff.max())
     print(f"  {label:12s} rel_rmse={rel:.3e} pixels_off={off:.3e} "
           f"max_abs={mx:.3e} segs={seg_g} vs {seg_e} (rel {seg_rel:.3e})")
-    check(rel < TWIN_REL_RMSE and off < TWIN_OFF_FRAC and seg_rel <= SEGS_REL,
+    check(rel < rel_bound and off < TWIN_OFF_FRAC and seg_rel <= SEGS_REL,
           f"{label} disagrees with its twin: rel_rmse {rel}, pixels off "
           f"{off}, segment rel diff {seg_rel}")
     return mx
 
 
-def oracle_phase():
+def oracle_phase(bvh):
+    """K1, or K5 with traversal="bvh" (``bvh``), on the Cornell Box at
+    128x128 against the numpy oracle."""
     from sfvp_tpu_torch import RenderConfig, init_state
+    from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
+    from sfvp_tpu_torch.kernels.bvh_packet import device_wide
+    from sfvp_tpu_torch.kernels.megakernel_bvh import make_bvh_regen_render_step
     from sfvp_tpu_torch.kernels.megakernel_regen import make_regen_render_step
 
-    phase("oracle: K1 at 128x128, 32 spp x 32 steps vs the numpy oracle")
+    name = "K5 (traversal='bvh')" if bvh else "K1"
+    phase(f"oracle: {name} at 128x128, 32 spp x 32 steps vs the numpy oracle")
     with np.load(os.path.join(ROOT, "tests", "golden",
                               "oracle_128_1024spp.npz")) as z:
         ref = torch.from_numpy(z["accum"]).to(DEVICE)
         frames, spp = int(z["frames"]), int(z["spp"])
-    cfg = RenderConfig(width=128, height=128, spp_per_step=spp, max_depth=8)
-    step = make_regen_render_step(cfg, cornell_buffers(DEVICE))
+    cfg = RenderConfig(width=128, height=128, spp_per_step=spp, max_depth=8,
+                       traversal="bvh" if bvh else "auto")
+    buffers = cornell_buffers(DEVICE)
+    if bvh:
+        step = make_bvh_regen_render_step(cfg, buffers, device_wide(
+            build_wide_from_buffers(buffers), DEVICE))
+    else:
+        step = make_regen_render_step(cfg, buffers)
     st = init_state(128, 128, DEVICE)
     for _ in range(frames):
         st = step(st)
@@ -203,20 +268,17 @@ def oracle_phase():
     print(f"  relative RMSE vs oracle: {rel:.3e} (bound {ORACLE_REL_RMSE}); "
           f"{off:.3%} of pixels off by > 1e-4, max abs "
           f"{float((st.accum - ref).abs().max()):.3e}")
-    check(rel <= ORACLE_REL_RMSE, f"K1 vs oracle relative RMSE {rel}")
+    check(rel <= ORACLE_REL_RMSE, f"{name} vs oracle relative RMSE {rel}")
 
 
 def main_path_phase(tmp):
     from sfvp_tpu_torch import RenderConfig, Renderer, cli, load_obj
-    from sfvp_tpu_torch.kernels.megakernel import wave_render
-    from sfvp_tpu_torch.kernels.megakernel_regen import regen_render
 
     phase(f"main path: cli at {MAIN_W}x{MAIN_H}, {MAIN_SPP} spp, depth "
           f"{MAIN_DEPTH}, {MAIN_STEPS} steps (K1); Renderer with "
           f"megakernel_regen=False, {K2_STEPS} steps (K2)")
     out, log = os.path.join(tmp, "cornell.png"), os.path.join(tmp, "run.jsonl")
-    regen_render.launches = 0
-    wave_render.launches = 0
+    reset_counts()
     rc = cli.main(["--device", DEVICE, "--width", str(MAIN_W), "--height",
                    str(MAIN_H), "--spp", str(MAIN_SPP), "--max-depth",
                    str(MAIN_DEPTH), "--steps", str(MAIN_STEPS), "--out", out,
@@ -225,8 +287,10 @@ def main_path_phase(tmp):
                                spp_per_step=MAIN_SPP, max_depth=MAIN_DEPTH,
                                megakernel_regen=False), load_obj(), DEVICE)
     k2_img = k2.run(K2_STEPS, progress=False)
-    launches = {"K1": regen_render.launches, "K2": wave_render.launches}
+    launches = read_counts()
     print(f"  launches during the main path: {launches}")
+    check(launches["K3"] == launches["K5"] == 0,
+          f"BVH kernels launched on the Cornell path: {launches}")
     check(rc == 0, f"cli returned {rc}")
     check(launches["K1"] == MAIN_STEPS,
           f"K1 launched {launches['K1']} times, expected {MAIN_STEPS}")
@@ -236,17 +300,9 @@ def main_path_phase(tmp):
     check(os.path.getsize(out) > 0, "no PNG written")
     recs = [json.loads(x) for x in open(log).read().splitlines()]
     check(len(recs) == MAIN_STEPS, f"{len(recs)} log records")
-    for rec in recs:
-        print(f"  step {rec['step']}: {rec['step_s'] * 1e3:.2f} ms, "
-              f"{rec['mrays_per_s']} Mrays/s, avg path {rec['avg_path_len']}")
+    print_steps(recs)
     for name, img in (("K1", _read_png(out)), ("K2", k2_img)):
-        img = np.asarray(img, np.float32)
-        check(img.shape[:2] == (MAIN_H, MAIN_W), f"{name} image {img.shape}")
-        check(np.isfinite(img).all(), f"{name} image has non-finite values")
-        check(img.max() > 0, f"{name} image is all zero")
-        sat = float((img >= 1.0).all(-1).mean())
-        check(sat < 0.5, f"{name} image saturated ({sat:.1%} white)")
-        print(f"  {name} image mean {img.mean():.4f}, {sat:.2%} white")
+        check_image(name, img, MAIN_H, MAIN_W)
     return launches, recs
 
 
@@ -302,30 +358,460 @@ def timing_phase():
     for k, ((ms, got), (plain, exp)) in runs.items():
         print(f"  {k}: kernel {ms:.3f} ms/step, plain twin {plain:.1f} ms/step")
         worst[k] = compare(f"{k} main", got, exp, MAIN_SPP)
-        times[k] = (ms, plain)
+        # every segment tests all triangles; bytes: the table once, the
+        # per-pixel outputs (K2: per ray, 32 launches) once
+        segs = int(got[3].sum(dtype=torch.int64))
+        ops = segs * (buffers.num_tris * TRI_OPS_TABLE + SHADE_OPS)
+        n_out = MAIN_W * MAIN_H * (1 if k == "K1" else MAIN_SPP)
+        nbytes = table.numel() * 4 + n_out * 16
+        times[k] = (ms, plain) + bound(ops, nbytes)
+        print(f"  {k}: {segs} segments, bound {times[k][2]:.3f} ms "
+              f"({times[k][3]})")
     return times, worst
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the two least times."""
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sphere_setup(tris, **cfg_kw):
+    """The CLI's bumpy sphere of about ``tris`` triangles with its view and
+    sky, cosine + RR, on the card, with its wide BVH built once."""
+    from sfvp_tpu_torch import RenderConfig, upload
+    from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
+    from sfvp_tpu_torch.cli import procedural_scene
+    from sfvp_tpu_torch.kernels.bvh_packet import device_wide
+
+    kw = dict(width=BVH_W, height=BVH_H, spp_per_step=BVH_SPP,
+              max_depth=BVH_DEPTH, sampling="cosine", use_rr=True)
+    kw.update(cfg_kw)
+    scene, cfg = procedural_scene("sphere", tris, RenderConfig(**kw))
+    buffers = upload(scene, device=DEVICE)
+    t0 = time.perf_counter()
+    wide = build_wide_from_buffers(buffers)
+    print(f"  sphere: {buffers.num_tris} triangles, wide BVH "
+          f"{wide.nodes.shape[0]} nodes + {wide.tris.shape[0]} leaf rows, "
+          f"max_stack {wide.max_stack}, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return dict(scene=scene, cfg=cfg, buffers=buffers, wide=wide,
+                dw=device_wide(wide, DEVICE))
+
+
+def capture_waves(cfg, sphere, calls):
+    """The (7, N) ray planes that K3 receives at the given calls of one
+    wavefront step of ``cfg`` (call c = bounce c of the first sample)."""
+    from sfvp_tpu_torch import init_state
+    from sfvp_tpu_torch.dispatch import select_render_step
+    from sfvp_tpu_torch.kernels import bvh_packet
+
+    # the trace builds each call's planes with ray_planes: record those
+    real, seen = bvh_packet.ray_planes, {}
+
+    def spy(*args, **kw):
+        rays = real(*args, **kw)
+        n = len(seen.setdefault("n", []))
+        seen["n"].append(n)
+        if n in calls:
+            seen[n] = rays.clone()
+        return rays
+
+    bvh_packet.ray_planes = spy
+    try:
+        step = select_render_step(
+            dataclasses.replace(cfg, megakernel_regen=False),
+            sphere["buffers"], wide=sphere["wide"])
+        step(init_state(cfg.height, cfg.width, DEVICE))
+    finally:
+        bvh_packet.ray_planes = real
+    return [seen[c] for c in calls]
+
+
+def compare_k3(label, dw, t_min, rays, got=None, exp=None):
+    """Hold K3's payload planes against its twin's: at least K3_SAME_TRI
+    of the rays on the same triangle (or both missing), every plane equal
+    there. Returns the largest absolute difference on those rays."""
+    from sfvp_tpu_torch.kernels.bvh_packet import packet_trace, packet_trace_plain
+
+    if got is None:
+        got = packet_trace(dw, t_min, rays)
+    if exp is None:
+        exp = packet_trace_plain(dw, t_min, rays)
+    miss_g, miss_e = torch.isinf(got[0]), torch.isinf(exp[0])
+    same = (miss_g & miss_e) | (~miss_g & ~miss_e
+                                & (got[3:] == exp[3:]).all(0))
+    frac = float(same.float().mean())
+    hit = same & ~miss_e
+    diff = (got[:, hit] - exp[:, hit]).abs()
+    mx = float(diff.max()) if hit.any() else 0.0
+    equal = bool((got[:, hit] == exp[:, hit]).all())
+    print(f"  K3 {label:14s} {rays.shape[1]} rays, {int(hit.sum())} hits, "
+          f"same triangle {frac:.6f}, planes equal there: {equal}, max abs "
+          f"{mx:.3e}")
+    check(frac >= K3_SAME_TRI and equal,
+          f"K3 {label} disagrees with its twin: same triangle on {frac}, "
+          f"planes equal {equal}")
+    return mx
+
+
+def bvh_twin_phase(sphere):
+    from sfvp_tpu_torch import RenderConfig
+    from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
+    from sfvp_tpu_torch.kernels.bvh_packet import device_wide, ray_planes
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render, bvh_regen_render_plain)
+
+    phase(f"bvh twins: K3 on {BVH_TWIN_SIZE * 2}^2-ray waves, K5 at "
+          f"{BVH_TWIN_SIZE}x{BVH_TWIN_SIZE}, {BVH_TWIN_SPP} spp, depth "
+          f"{BVH_DEPTH}, cosine + RR")
+    cfg, dw = sphere["cfg"], sphere["dw"]
+    size = 2 * BVH_TWIN_SIZE
+    camera, bounce = capture_waves(dataclasses.replace(
+        cfg, width=size, height=size, spp_per_step=1), sphere, (0, 1))
+    g = np.random.default_rng(0)
+    o = torch.tensor(g.uniform(-1.5, 1.5, (3, size * size)),
+                     dtype=torch.float32, device=DEVICE)
+    d = torch.tensor(g.normal(size=(3, size * size)), dtype=torch.float32,
+                     device=DEVICE)
+    d = d / d.norm(dim=0)
+    random = ray_planes(tuple(o), tuple(d), cfg.t_max)
+    worst = {"K3": max(compare_k3(label, dw, cfg.t_min, rays) for label, rays
+                       in (("camera", camera), ("bounce", bounce),
+                           ("random", random)))}
+    n = BVH_TWIN_SIZE
+    mirror = cornell_buffers(DEVICE, mirrors=True)
+    cases = {
+        "sphere": (dw, False, dataclasses.replace(
+            cfg, width=n, height=n, spp_per_step=BVH_TWIN_SPP)),
+        "cornell_mirror": (
+            device_wide(build_wide_from_buffers(mirror), DEVICE), True,
+            RenderConfig(width=n, height=n, spp_per_step=BVH_TWIN_SPP,
+                         max_depth=BVH_DEPTH, sampling="cosine",
+                         use_rr=True, traversal="bvh")),
+    }
+    worst["K5"] = 0.0
+    for case, (w, mirrors, c) in cases.items():
+        args = dict(cfg=c, global_shape=(n, n), npix=n * n,
+                    has_mirrors=mirrors)
+        got = bvh_regen_render(w, 3, 0, **args)
+        exp = bvh_regen_render_plain(w, 3, 0, **args)
+        worst["K5"] = max(worst["K5"], compare(
+            f"K5 {case}", got, exp, BVH_TWIN_SPP, K5_TWIN_REL_RMSE))
+    return worst
+
+
+def k5_vs_k1_phase():
+    from sfvp_tpu_torch import RenderConfig
+    from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
+    from sfvp_tpu_torch.kernels.bvh_packet import device_wide
+    from sfvp_tpu_torch.kernels.megakernel import scene_table
+    from sfvp_tpu_torch.kernels.megakernel_bvh import bvh_regen_render
+    from sfvp_tpu_torch.kernels.megakernel_regen import regen_render
+
+    n, spp = K5_K1_SIZE, 8
+    phase(f"K5 (traversal='bvh') against K1 on the Cornell Box at {n}x{n}, "
+          f"{spp} spp, depth 8: the same streams")
+    for mirrors in (False, True):
+        buffers = cornell_buffers(DEVICE, mirrors)
+        cfg = RenderConfig(width=n, height=n, spp_per_step=spp, max_depth=8)
+        args = dict(global_shape=(n, n), npix=n * n, has_mirrors=mirrors)
+        k1 = regen_render(scene_table(buffers), 2, 0, cfg=cfg,
+                          num_tris=buffers.num_tris, **args)
+        k5 = bvh_regen_render(
+            device_wide(build_wide_from_buffers(buffers), DEVICE), 2, 0,
+            cfg=dataclasses.replace(cfg, traversal="bvh"), **args)
+        compare("K5 vs K1" + (" mirror" if mirrors else ""), k5, k1, spp,
+                K5_K1_REL_RMSE)
+
+
+def counters():
+    from sfvp_tpu_torch.kernels.bvh_packet import packet_trace
+    from sfvp_tpu_torch.kernels.megakernel import wave_render
+    from sfvp_tpu_torch.kernels.megakernel_bvh import bvh_regen_render
+    from sfvp_tpu_torch.kernels.megakernel_regen import regen_render
+
+    return {"K1": regen_render, "K2": wave_render, "K3": packet_trace,
+            "K5": bvh_regen_render}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def check_image(name, img, h, w):
+    img = np.asarray(img, np.float32)
+    check(img.shape[:2] == (h, w), f"{name} image {img.shape}")
+    check(np.isfinite(img).all(), f"{name} image has non-finite values")
+    check(img.max() > 0, f"{name} image is all zero")
+    sat = float((img >= 1.0).all(-1).mean())
+    check(sat < 0.5, f"{name} image saturated ({sat:.1%} white)")
+    print(f"  {name} image mean {img.mean():.4f}, {sat:.2%} white")
+
+
+def print_steps(recs):
+    for rec in recs:
+        print(f"  step {rec['step']}: step_s {rec['step_s']}, "
+              f"{rec['mrays_per_s']} Mrays/s, avg path {rec['avg_path_len']}")
+
+
+def run_cli(tmp, name, argv):
+    """Run the CLI as a user would; returns its set-up seconds (the
+    wide-BVH build it reports), its JSONL records and its PNG."""
+    import contextlib
+    import io
+    import re
+
+    from sfvp_tpu_torch import cli
+
+    out, log = os.path.join(tmp, f"{name}.png"), os.path.join(tmp,
+                                                              f"{name}.jsonl")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--device", DEVICE, *argv, "--out", out, "--log", log])
+    text = buf.getvalue()
+    check(rc == 0, f"cli returned {rc}")
+    m = re.search(r"set-up: (.*) built in ([0-9.]+) s", text)
+    check(m is not None, f"no set-up line in the cli's output:\n{text}")
+    print(f"  set-up: {m.group(1)} in {m.group(2)} s")
+    recs = [json.loads(x) for x in open(log).read().splitlines()]
+    return float(m.group(2)), recs, _read_png(out)
+
+
+def bvh_main_path_phase(tmp):
+    from sfvp_tpu_torch import Renderer
+    from sfvp_tpu_torch.cli import procedural_scene
+
+    phase(f"bvh main path: cli --scene sphere --scene-tris {SPHERE_TRIS} at "
+          f"{BVH_W}x{BVH_H}, {BVH_SPP} spp, depth {BVH_DEPTH}, cosine + RR, "
+          f"{BVH_STEPS} steps (K5); Renderer with megakernel_regen=False, "
+          f"{K3_STEPS} step (K3); {BIG_TRIS} triangles at {BIG_W}x{BIG_H}, "
+          f"{BIG_STEPS} steps (K5)")
+    common = ["--scene", "sphere", "--sampling", "cosine", "--rr",
+              "--spp", str(BVH_SPP), "--max-depth", str(BVH_DEPTH)]
+    runs = {}
+
+    reset_counts()
+    setup, recs, img = run_cli(tmp, "sphere", [
+        *common, "--scene-tris", str(SPHERE_TRIS), "--width", str(BVH_W),
+        "--height", str(BVH_H), "--steps", str(BVH_STEPS)])
+    runs["cli_100k"] = read_counts()
+    print(f"  launches: {runs['cli_100k']}")
+    check(runs["cli_100k"] == {"K1": 0, "K2": 0, "K3": 0, "K5": BVH_STEPS},
+          f"cli sphere launches {runs['cli_100k']}")
+    check(len(recs) == BVH_STEPS, f"{len(recs)} log records")
+    print_steps(recs)
+    check_image("K5 sphere", img, BVH_H, BVH_W)
+
+    from sfvp_tpu_torch import RenderConfig
+
+    scene, cfg = procedural_scene("sphere", SPHERE_TRIS, RenderConfig(
+        width=BVH_W, height=BVH_H, spp_per_step=BVH_SPP,
+        max_depth=BVH_DEPTH, sampling="cosine", use_rr=True,
+        megakernel_regen=False))
+    log = os.path.join(tmp, "k3.jsonl")
+    reset_counts()
+    r = Renderer(cfg, scene, DEVICE)
+    img = r.run(K3_STEPS, log_path=log, progress=False)
+    runs["renderer_k3"] = read_counts()
+    per_step = BVH_SPP * BVH_DEPTH
+    print(f"  launches: {runs['renderer_k3']}; set-up: wide BVH built in "
+          f"{r.bvh_build_s:.2f} s")
+    check(runs["renderer_k3"] == {"K1": 0, "K2": 0, "K3": K3_STEPS * per_step,
+                                  "K5": 0},
+          f"wavefront launches {runs['renderer_k3']}")
+    print_steps([json.loads(x) for x in open(log).read().splitlines()])
+    check_image("K3 wavefront sphere", img, BVH_H, BVH_W)
+
+    reset_counts()
+    big_setup, recs, img = run_cli(tmp, "sphere_big", [
+        *common, "--scene-tris", str(BIG_TRIS), "--width", str(BIG_W),
+        "--height", str(BIG_H), "--steps", str(BIG_STEPS)])
+    runs["cli_500k"] = read_counts()
+    print(f"  launches: {runs['cli_500k']}")
+    check(runs["cli_500k"] == {"K1": 0, "K2": 0, "K3": 0, "K5": BIG_STEPS},
+          f"cli 500k sphere launches {runs['cli_500k']}")
+    print_steps(recs)
+    check_image("K5 500k sphere", img, BIG_H, BIG_W)
+    return runs
+
+
+def bvh_timing_phase(sphere):
+    from sfvp_tpu_torch.kernels.bvh_packet import packet_trace, packet_trace_plain
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render, bvh_regen_render_plain)
+
+    phase(f"bvh times and twin check at the main path's shape ({BVH_W}x"
+          f"{BVH_H}, {BVH_SPP} spp, depth {BVH_DEPTH}, cosine + RR), CUDA "
+          "events")
+    cfg, dw, wide = sphere["cfg"], sphere["dw"], sphere["wide"]
+    npix = BVH_W * BVH_H
+    # distinct bytes of the tree: the 64 used lanes of a node row, the
+    # 128 lanes of a leaf row
+    tree_bytes = (wide.nodes.shape[0] * 64 + wide.tris.shape[0] * 128) * 4
+
+    def traversal_ops(counts):
+        return (counts["node_pops"] * (8 * BOX_OPS + SORT_OPS)
+                + counts["leaf_pops"] * 8 * TRI_OPS_ROWS)
+
+    args = dict(cfg=cfg, global_shape=(BVH_H, BVH_W), npix=npix,
+                has_mirrors=False)
+    ms, got = cuda_ms(lambda: bvh_regen_render(dw, 1, 0, **args), 5)
+    counts = {}
+    plain, exp = cuda_ms(lambda: bvh_regen_render_plain(
+        dw, 1, 0, counts=counts, **args), 1, warm=False)
+    print(f"  K5: kernel {ms:.3f} ms/step, plain twin {plain:.1f} ms/step; "
+          f"twin pops {counts}")
+    worst = {"K5": compare("K5 main", got, exp, BVH_SPP, K5_TWIN_REL_RMSE)}
+    segs = int(exp[3].sum(dtype=torch.int64))
+    times = {"K5": (ms, plain) + bound(
+        traversal_ops(counts) + segs * SHADE_OPS, tree_bytes + npix * 16)}
+    print(f"  K5: {segs} segments, bound {times['K5'][2]:.3f} ms "
+          f"({times['K5'][3]})")
+
+    first, later = capture_waves(dataclasses.replace(cfg, spp_per_step=1),
+                                 sphere, (0, 2))
+    worst["K3"] = 0.0
+    for label, rays in (("first bounce", first), ("third bounce", later)):
+        ms, got = cuda_ms(lambda: packet_trace(dw, cfg.t_min, rays), 20)
+        counts = {}
+        plain, exp = cuda_ms(lambda: packet_trace_plain(
+            dw, cfg.t_min, rays, counts), 1, warm=False)
+        active = int((rays[6] > cfg.t_min).sum())
+        worst["K3"] = max(worst["K3"], compare_k3(
+            label, dw, cfg.t_min, rays, got=got, exp=exp))
+        b = bound(traversal_ops(counts),
+                  tree_bytes + rays.shape[1] * (7 + 19) * 4)
+        print(f"  K3 {label}: {active} active rays, kernel {ms:.3f} "
+              f"ms/launch, plain twin {plain:.1f} ms; pops {counts}; bound "
+              f"{b[0]:.3f} ms ({b[1]})")
+        times.setdefault("K3", (ms, plain) + b)
+    return times, worst
+
+
+def big_sphere_phase(sphere):
+    """K5 on the 500k sphere's tree (LBVH, the builder="auto" side above
+    200k triangles) at the size the main path renders it, held against its
+    twin; and K5 per pixel and per segment on the 500k and the 100k trees
+    at that size, beside each tree's pops per segment. Returns K5's
+    largest absolute difference on the 500k tree."""
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render, bvh_regen_render_plain)
+
+    phase(f"bvh 500k: K5 vs twin on the {BIG_TRIS}-triangle sphere at "
+          f"{BIG_W}x{BIG_H}, {BVH_SPP} spp, depth {BVH_DEPTH}, cosine + RR; "
+          "K5 on both trees at that size, CUDA events")
+    big = sphere_setup(BIG_TRIS, width=BIG_W, height=BIG_H)
+    npix = BIG_W * BIG_H
+    worst = 0.0
+    for name, s in (("500k", big), ("100k", sphere)):
+        args = dict(cfg=dataclasses.replace(s["cfg"], width=BIG_W,
+                                            height=BIG_H),
+                    global_shape=(BIG_H, BIG_W), npix=npix, has_mirrors=False)
+        dw = s["dw"]
+        ms, got = cuda_ms(lambda: bvh_regen_render(dw, 1, 0, **args), 10)
+        counts = {}
+        plain, exp = cuda_ms(lambda: bvh_regen_render_plain(
+            dw, 1, 0, counts=counts, **args), 1, warm=False)
+        mx = compare(f"K5 {name}", got, exp, BVH_SPP, K5_TWIN_REL_RMSE)
+        worst = mx if name == "500k" else worst
+        segs = int(exp[3].sum(dtype=torch.int64))
+        print(f"  K5 {name} tree: {ms:.3f} ms/step ({ms * 1e6 / npix:.2f} "
+              f"ns/pixel, {ms * 1e6 / segs:.3f} ns/segment), twin "
+              f"{plain:.1f} ms; {segs} segments, "
+              f"{counts['node_pops'] / segs:.3f} node and "
+              f"{counts['leaf_pops'] / segs:.3f} leaf pops per segment")
+    return worst
+
+
+def sort_phase(sphere):
+    """The wavefront step over K3 at the main path's shape with the
+    per-bounce ray sort on and off (sort_bounce_rays), in alternating
+    rounds: CUDA-event times per step, and the same image either way."""
+    from sfvp_tpu_torch import init_state
+    from sfvp_tpu_torch.dispatch import select_render_step
+
+    phase(f"ray sort: the wavefront step over K3 at {BVH_W}x{BVH_H}, "
+          f"{BVH_SPP} spp, with sort_bounce_rays on and off, "
+          f"{SORT_ROUNDS} rounds of {SORT_STEPS} steps, CUDA events")
+    steps, images, ms = {}, {}, {True: [], False: []}
+    for sort in (True, False):
+        cfg = dataclasses.replace(sphere["cfg"], megakernel_regen=False,
+                                  sort_bounce_rays=sort)
+        steps[sort] = select_render_step(cfg, sphere["buffers"],
+                                         wide=sphere["wide"])
+        images[sort] = steps[sort](init_state(BVH_H, BVH_W, DEVICE)).accum
+    check(torch.equal(images[True], images[False]),
+          "the ray sort changed the image")
+    for _ in range(SORT_ROUNDS):
+        for sort in (True, False):
+            st = init_state(BVH_H, BVH_W, DEVICE)
+            step = steps[sort]
+            ms[sort].append(cuda_ms(lambda: step(st), SORT_STEPS,
+                                    warm=False)[0])
+    for sort in (True, False):
+        print(f"  sort_bounce_rays={sort}: "
+              f"{', '.join(f'{t:.3f}' for t in ms[sort])} ms/step")
+    print("  images equal with the sort on and off: True")
+    return ms
+
+
+def kernel_entry(name, source, replaces, per, launches, worst, times):
+    ms, plain, bound_ms, bound_by = times
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "per": per}
 
 
 def main() -> int:
     card = device_phase()
     build_phase()
     worst = twin_phase()
-    oracle_phase()
+    oracle_phase(False)
     with tempfile.TemporaryDirectory() as tmp:
         launches, _ = main_path_phase(tmp)
     times, worst_main = timing_phase()
     worst = {k: max(worst[k], worst_main[k]) for k in worst}
+
+    sphere = sphere_setup(SPHERE_TRIS)
+    worst.update(bvh_twin_phase(sphere))
+    oracle_phase(True)
+    k5_vs_k1_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        bvh_runs = bvh_main_path_phase(tmp)
+    bvh_times, bvh_worst = bvh_timing_phase(sphere)
+    times.update(bvh_times)
+    worst = {k: max(worst[k], bvh_worst.get(k, 0.0)) for k in worst}
+    worst["K5"] = max(worst["K5"], big_sphere_phase(sphere))
+    sort_phase(sphere)
+
+    step = f"step ({MAIN_W}x{MAIN_H}, {MAIN_SPP} spp, Cornell)"
     report = {"kernels": [
-        {"name": "regen_render (K1)", "route": "cuda",
-         "source": "sfvp_tpu_torch/csrc/regen_render.cu",
-         "replaces": "sfvp_tpu/kernels/megakernel_regen.py:1137",
-         "launches": launches["K1"], "max_abs_err": worst["K1"],
-         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
-        {"name": "wave_render (K2)", "route": "cuda",
-         "source": "sfvp_tpu_torch/csrc/wave_render.cu",
-         "replaces": "sfvp_tpu/kernels/megakernel.py:366",
-         "launches": launches["K2"], "max_abs_err": worst["K2"],
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+        kernel_entry("regen_render (K1)", "sfvp_tpu_torch/csrc/regen_render.cu",
+                     "sfvp_tpu/kernels/megakernel_regen.py:1137", step,
+                     launches["K1"], worst["K1"], times["K1"]),
+        kernel_entry("wave_render (K2)", "sfvp_tpu_torch/csrc/wave_render.cu",
+                     "sfvp_tpu/kernels/megakernel.py:366",
+                     f"{step}: {MAIN_SPP} launches",
+                     launches["K2"], worst["K2"], times["K2"]),
+        kernel_entry("bvh_trace (K3)", "sfvp_tpu_torch/csrc/bvh_trace.cu",
+                     "sfvp_tpu/kernels/bvh_packet.py:394",
+                     f"launch on the {BVH_W}x{BVH_H} first-bounce wave "
+                     f"({SPHERE_TRIS // 1000}k sphere)",
+                     bvh_runs["renderer_k3"]["K3"], worst["K3"], times["K3"]),
+        kernel_entry("bvh_regen_render (K5)",
+                     "sfvp_tpu_torch/csrc/bvh_regen_render.cu",
+                     "sfvp_tpu/kernels/megakernel_bvh.py:2326",
+                     f"step ({BVH_W}x{BVH_H}, {BVH_SPP} spp, "
+                     f"{SPHERE_TRIS // 1000}k sphere)",
+                     bvh_runs["cli_100k"]["K5"], worst["K5"], times["K5"]),
     ]}
     print(card)
     print(json.dumps(report))

@@ -4,15 +4,19 @@ ported (defaults = reference values).
 
 Example:
     python -m sfvp_tpu_torch.cli --device cuda --steps 32 --out cornell.png
+    python -m sfvp_tpu_torch.cli --scene sphere --scene-tris 100000 \
+        --sampling cosine --rr --spp 8 --steps 4 --out sphere.png
 
 Flags of features not ported yet (--nee, --mis, --env-map, --lens-radius,
---focus-dist, --dist, --adaptive, procedural --scene values) raise
+--focus-dist, --dist, --adaptive, --scene instanced) raise
 NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
 
 from .config import CameraConfig, RenderConfig
 from .render.driver import Renderer
@@ -29,8 +33,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["cornell", "sphere", "terrain", "city",
                             "instanced"],
                    default="cornell",
-                   help="test scene when --obj is not given (only cornell "
-                        "is ported)")
+                   help="test scene when --obj is not given (instanced "
+                        "is not ported yet)")
+    p.add_argument("--scene-tris", type=int, default=100_000,
+                   help="approximate triangle count for procedural scenes")
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--height", type=int, default=1024)
     p.add_argument("--steps", type=int, default=32, help="progressive steps to run")
@@ -39,6 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spp-chunk", type=int, default=1)
     p.add_argument("--sampling", choices=["uniform", "cosine"], default="uniform")
     p.add_argument("--rr", action="store_true", help="enable Russian roulette")
+    p.add_argument("--traversal", choices=["auto", "brute", "bvh"],
+                   default="auto")
     p.add_argument("--out", default="render.png")
     p.add_argument("--srgb", action="store_true", help="sRGB-encode the PNG (default: unorm clamp like the reference swapchain)")
     p.add_argument("--frame-every", type=int, default=0, help="write intermediate PNG every N steps")
@@ -76,10 +84,10 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: {what} is not ported to "
                 "sfvp_tpu_torch yet")
-    if args.obj is None and args.scene != "cornell":
+    if args.obj is None and args.scene == "instanced":
         raise NotImplementedError(
-            f"--scene {args.scene}: procedural scenes and the BVH they need "
-            "are not ported to sfvp_tpu_torch yet (ROADMAP.md A.9)")
+            "--scene instanced: instancing is not ported to sfvp_tpu_torch "
+            "yet (ROADMAP.md A.14)")
     cfg = RenderConfig(
         width=args.width,
         height=args.height,
@@ -88,10 +96,18 @@ def main(argv=None) -> int:
         spp_chunk=args.spp_chunk,
         sampling=args.sampling,
         use_rr=args.rr,
+        traversal=args.traversal,
         camera=CameraConfig(),
     )
-    scene = load_obj(args.obj or cornell_box_path())
+    if args.obj or args.scene == "cornell":
+        scene = load_obj(args.obj or cornell_box_path())
+    else:
+        scene, cfg = procedural_scene(args.scene, args.scene_tris, cfg)
     r = Renderer(cfg, scene, args.device)
+    if r.wide is not None and not args.quiet:
+        print(f"set-up: wide BVH of {scene.num_triangles} triangles "
+              f"({r.wide.nodes.shape[0]} nodes, {r.wide.tris.shape[0]} leaf "
+              f"rows) built in {r.bvh_build_s:.3f} s", flush=True)
     if args.resume and args.checkpoint:
         r.resume(args.checkpoint)
     r.run(
@@ -105,6 +121,40 @@ def main(argv=None) -> int:
         progress=not args.quiet,
     )
     return 0
+
+
+def procedural_scene(name: str, n_tris: int, cfg: RenderConfig):
+    """The procedural scene ``name`` of about ``n_tris`` triangles, with
+    sfvp_tpu's CLI sizing (cli.py:100-118), and ``cfg`` with its default
+    view and sky when the camera is the reference's (cli.py:119-139):
+    procedural scenes are y-up and the reference camera does not frame
+    them."""
+    from .scene.procedural import city_mesh, sphere_mesh, terrain_mesh
+
+    if name == "sphere":
+        n = max(16, int(math.sqrt(n_tris / 2)))
+        scene = sphere_mesh(n_lat=n, n_lon=n, bump=0.3)
+    elif name == "city":
+        # ~12 subdivided faces per building; solve for the count
+        sub = 9
+        scene = city_mesh(n_buildings=max(4, n_tris // (12 * sub * sub)),
+                          subdiv=sub)
+    elif name == "terrain":
+        scene = terrain_mesh(n=max(16, int(math.sqrt(n_tris / 2)) + 1))
+    else:
+        raise ValueError(f"unknown procedural scene {name!r}")
+    if cfg.camera == CameraConfig():
+        if name == "city":
+            cam = CameraConfig.look_at(
+                origin=(13.0, 9.0, 13.0), target=(0.0, 0.8, 0.0),
+                fov_y_deg=55.0)
+        else:
+            cam = CameraConfig.look_at(
+                origin=(0.0, 2.2, 5.0), target=(0.0, 0.0, 0.0),
+                fov_y_deg=50.0)
+        cfg = dataclasses.replace(cfg, camera=cam,
+                                  sky_emission=(0.8, 0.85, 1.0))
+    return scene, cfg
 
 
 if __name__ == "__main__":

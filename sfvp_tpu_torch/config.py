@@ -95,18 +95,30 @@ class RenderConfig:
     rr_start_depth: int = 3
 
     # Execution knobs (do not affect the image in expectation). The JAX
-    # package's TPU knobs (backend, block rows, packet tiling, ray sorting,
-    # triangle streaming, the VMEM budget) are unhashed and have no
-    # counterpart here.
+    # package's TPU knobs (backend, block rows, packet tiling, triangle
+    # streaming, the VMEM budget) are unhashed and have no counterpart
+    # here.
     spp_chunk: int = 1               # samples folded into one ray wave
-    # "auto" | "brute" | "bvh"; "bvh" is not ported yet and raises
+    # "auto" | "brute" | "bvh"
     traversal: str = "auto"
-    # brute force up to this many triangles; more need the BVH (slice 2)
+    # "auto": brute force up to this many triangles, the wide BVH beyond
     brute_force_max_tris: int = 256
     # in-lane sample regeneration: one thread runs all spp samples of its
-    # pixel back to back (kernel K1). Off = the chunked kernel K2, which
-    # keeps the wavefront integrator's per-sample summation order.
+    # pixel back to back (kernel K1, K5 on the BVH). Off = the chunked
+    # kernel K2, or on the BVH the wavefront loop over the trace kernel
+    # K3, which keep the wavefront integrator's per-sample summation order.
     megakernel_regen: bool = True
+    # re-sort the wavefront loop's rays every bounce by (direction octant,
+    # position morton) on the BVH route (integrate/wavefront.py
+    # make_sort_key); dead rays sort last. Execution knob: never changes
+    # the image. Off by default here (sfvp_tpu turns it on): on an H100
+    # the sort costs more than the trace gains, a 1024x1024 8-spp
+    # wavefront step of the 100k sphere taking ~190 ms with it and ~138 ms
+    # without (chip_smoke.py, ray-sort phase).
+    sort_bounce_rays: bool = False
+    # prepend the surface material type to that sort key; only engages on
+    # scenes that mix materials. Execution knob: never changes the image.
+    sort_material_key: bool = True
     # debug config: assert a finite accumulator at every observed step
     # boundary of the progressive loop.
     debug_nan: bool = False

@@ -1,7 +1,7 @@
-// Device functions shared by the brute-force path-tracing kernels
-// (regen_render.cu = K1, wave_render.cu = K2): bit-exact PCG, the camera
-// ray, Moller-Trumbore closest hit against a scene table in shared memory,
-// and one path segment (shade, sample the next direction, roulette).
+// Device functions shared by the path-tracing kernels (regen_render.cu =
+// K1, wave_render.cu = K2, bvh_regen_render.cu = K5): bit-exact PCG, the
+// camera ray, Moller-Trumbore closest hit against a scene table in shared
+// memory, and the shading of a hit (sample the next direction, roulette).
 //
 // 1/sqrt is 1.0f / sqrtf(x), two correctly rounded ops, never the
 // approximate rsqrtf (see utils/vec.py inv_sqrt).
@@ -143,39 +143,25 @@ __device__ __forceinline__ int closest_hit(const float* tab, const Params& p,
   return prim;
 }
 
-// One path segment: trace, add its radiance into (cr, cg, cb), then shade
-// and pick the next direction. Returns whether the path continues.
-// RR_EVERY_DEPTH: draw the roulette number at every depth (K1 and the
+// What the shading after a hit needs of the surface (ref
+// closesthit.rchit:43-65): the hit point, the geometric normal
+// -normalize(cross(e1, e2)), the albedo that diffuse sampling scales by,
+// the mirror tint and the material type (1 = mirror).
+struct Surface {
+  float posx, posy, posz, nx, ny, nz;
+  float dr, dg, db;
+  float sr, sg, sb;
+  float mtype;
+};
+
+// Shade a hit whose emission is already added: pick the next direction,
+// update the throughput, play roulette. Returns whether the path continues.
+// RR_EVERY_DEPTH: draw the roulette number at every depth (K1, K5 and the
 // wavefront integrator) or only from rr_start on (K2).
 template <bool HAS_MIRRORS, bool RR_EVERY_DEPTH>
-__device__ __forceinline__ bool path_segment(const float* tab, const Params& p,
-                                             int depth, Path& q, float& cr,
-                                             float& cg, float& cb) {
-  const int T = p.num_tris;
-  float u, v;
-  const int k = closest_hit(tab, p, q, u, v);
-  if (k < 0) {  // miss: sky emission ends the path (ref miss.rmiss:8-12)
-    cr = cr + q.wr * p.sky[0];
-    cg = cg + q.wg * p.sky[1];
-    cb = cb + q.wb * p.sky[2];
-    return false;
-  }
-  // hit shading, ref shaders/closesthit.rchit:43-65
-  cr = cr + q.wr * tab[12 * T + k];
-  cg = cg + q.wg * tab[13 * T + k];
-  cb = cb + q.wb * tab[14 * T + k];
-  const float w = 1.0f - u - v;
-  const float posx = tab[k] * w + tab[3 * T + k] * u + tab[6 * T + k] * v;
-  const float posy = tab[T + k] * w + tab[4 * T + k] * u + tab[7 * T + k] * v;
-  const float posz = tab[2 * T + k] * w + tab[5 * T + k] * u + tab[8 * T + k] * v;
-  const float e1x = tab[19 * T + k], e1y = tab[20 * T + k], e1z = tab[21 * T + k];
-  const float e2x = tab[22 * T + k], e2y = tab[23 * T + k], e2z = tab[24 * T + k];
-  const float cx = e1y * e2z - e1z * e2y;
-  const float cy = e1z * e2x - e1x * e2z;
-  const float cz = e1x * e2y - e1y * e2x;
-  const float inv_len = 1.0f / sqrtf(cx * cx + cy * cy + cz * cz);
-  const float nx = -(cx * inv_len), ny = -(cy * inv_len), nz = -(cz * inv_len);
-
+__device__ __forceinline__ bool scatter(const Params& p, int depth,
+                                        const Surface& s, Path& q) {
+  const float nx = s.nx, ny = s.ny, nz = s.nz;
   // next direction, ref shaders/raygen.rgen:14-39 (+ cosine variant)
   const float r1 = rand01(q.seed);
   const float r2 = rand01(q.seed);
@@ -202,15 +188,15 @@ __device__ __forceinline__ bool path_segment(const float* tab, const Params& p,
   float ndx = tx * lx + bx * ly + nx * lz;
   float ndy = ty * lx + by * ly + ny * lz;
   float ndz = tz * lx + bz * ly + nz * lz;
-  float sr = tab[9 * T + k], sg = tab[10 * T + k], sb = tab[11 * T + k];
+  float fr = s.dr, fg = s.dg, fb = s.db;
   if (p.uniform) {
-    const float s = p.uniform_scale * (ndx * nx + ndy * ny + ndz * nz);
-    sr = sr * s;
-    sg = sg * s;
-    sb = sb * s;
+    const float c = p.uniform_scale * (ndx * nx + ndy * ny + ndz * nz);
+    fr = fr * c;
+    fg = fg * c;
+    fb = fb * c;
   }
   if (HAS_MIRRORS) {
-    const float mt = tab[18 * T + k];
+    const float mt = s.mtype;
     if (mt > 0.5f && mt < 1.5f) {
       // perfect mirror about the normal flipped toward the incoming ray
       const bool flip = q.dx * nx + q.dy * ny + q.dz * nz > 0.0f;
@@ -221,34 +207,83 @@ __device__ __forceinline__ bool path_segment(const float* tab, const Params& p,
       ndx = q.dx - fx * kk;
       ndy = q.dy - fy * kk;
       ndz = q.dz - fz * kk;
-      sr = tab[15 * T + k];
-      sg = tab[16 * T + k];
-      sb = tab[17 * T + k];
+      fr = s.sr;
+      fg = s.sg;
+      fb = s.sb;
     }
   }
   const bool rr_on = depth >= p.rr_start;
   if (p.use_rr && (RR_EVERY_DEPTH || rr_on)) {
-    const float m = fmaxf(q.wr * sr, fmaxf(q.wg * sg, q.wb * sb));
+    const float m = fmaxf(q.wr * fr, fmaxf(q.wg * fg, q.wb * fb));
     const float pmax = fminf(fmaxf(m, 0.05f), 0.95f);
     const float r_rr = rand01(q.seed);
     if (rr_on) {
       if (!(r_rr < pmax)) return false;
       const float inv_p = 1.0f / pmax;
-      sr = sr * inv_p;
-      sg = sg * inv_p;
-      sb = sb * inv_p;
+      fr = fr * inv_p;
+      fg = fg * inv_p;
+      fb = fb * inv_p;
     }
   }
-  q.ox = posx;
-  q.oy = posy;
-  q.oz = posz;
+  q.ox = s.posx;
+  q.oy = s.posy;
+  q.oz = s.posz;
   q.dx = ndx;
   q.dy = ndy;
   q.dz = ndz;
-  q.wr = q.wr * sr;
-  q.wg = q.wg * sg;
-  q.wb = q.wb * sb;
+  q.wr = q.wr * fr;
+  q.wg = q.wg * fg;
+  q.wb = q.wb * fb;
   return true;
+}
+
+// A miss: sky emission ends the path (ref miss.rmiss:8-12).
+__device__ __forceinline__ void add_sky(const Params& p, const Path& q,
+                                        float& cr, float& cg, float& cb) {
+  cr = cr + q.wr * p.sky[0];
+  cg = cg + q.wg * p.sky[1];
+  cb = cb + q.wb * p.sky[2];
+}
+
+// One path segment against the brute-force table: trace, add its radiance
+// into (cr, cg, cb), then shade. Returns whether the path continues.
+template <bool HAS_MIRRORS, bool RR_EVERY_DEPTH>
+__device__ __forceinline__ bool path_segment(const float* tab, const Params& p,
+                                             int depth, Path& q, float& cr,
+                                             float& cg, float& cb) {
+  const int T = p.num_tris;
+  float u, v;
+  const int k = closest_hit(tab, p, q, u, v);
+  if (k < 0) {
+    add_sky(p, q, cr, cg, cb);
+    return false;
+  }
+  // hit shading, ref shaders/closesthit.rchit:43-65
+  cr = cr + q.wr * tab[12 * T + k];
+  cg = cg + q.wg * tab[13 * T + k];
+  cb = cb + q.wb * tab[14 * T + k];
+  Surface s;
+  const float w = 1.0f - u - v;
+  s.posx = tab[k] * w + tab[3 * T + k] * u + tab[6 * T + k] * v;
+  s.posy = tab[T + k] * w + tab[4 * T + k] * u + tab[7 * T + k] * v;
+  s.posz = tab[2 * T + k] * w + tab[5 * T + k] * u + tab[8 * T + k] * v;
+  const float e1x = tab[19 * T + k], e1y = tab[20 * T + k], e1z = tab[21 * T + k];
+  const float e2x = tab[22 * T + k], e2y = tab[23 * T + k], e2z = tab[24 * T + k];
+  const float cx = e1y * e2z - e1z * e2y;
+  const float cy = e1z * e2x - e1x * e2z;
+  const float cz = e1x * e2y - e1y * e2x;
+  const float inv_len = 1.0f / sqrtf(cx * cx + cy * cy + cz * cz);
+  s.nx = -(cx * inv_len);
+  s.ny = -(cy * inv_len);
+  s.nz = -(cz * inv_len);
+  s.dr = tab[9 * T + k];
+  s.dg = tab[10 * T + k];
+  s.db = tab[11 * T + k];
+  s.sr = tab[15 * T + k];
+  s.sg = tab[16 * T + k];
+  s.sb = tab[17 * T + k];
+  s.mtype = tab[18 * T + k];
+  return scatter<HAS_MIRRORS, RR_EVERY_DEPTH>(p, depth, s, q);
 }
 
 }  // namespace sfvp

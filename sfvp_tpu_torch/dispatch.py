@@ -1,12 +1,24 @@
 """Backend dispatch: the render step for a config and scene.
 
-The port runs the brute-force route of sfvp_tpu.dispatch.select_render_step
-(dispatch.py:236-254): K1 (kernels/megakernel_regen.py) by default, K2
-(kernels/megakernel.py) with ``megakernel_regen=False``. The scene's device
-picks the implementation inside each kernel wrapper: a CUDA tensor runs the
-hand-written kernel, a CPU tensor its plain PyTorch twin. A config outside
-the ported slice raises NotImplementedError naming its ROADMAP.md item;
-nothing falls back to another integrator.
+The port runs the brute-force and single-level BVH routes of
+sfvp_tpu.dispatch.select_render_step (dispatch.py:236-364):
+
+  - brute (``traversal="brute"``, or "auto" up to brute_force_max_tris
+    triangles): K1 (kernels/megakernel_regen.py) by default, K2
+    (kernels/megakernel.py) with ``megakernel_regen=False``;
+  - bvh (``traversal="bvh"``, or "auto" beyond): the wide BVH
+    (accel/wide.py) traced by K5 (kernels/megakernel_bvh.py) by default,
+    or with ``megakernel_regen=False`` by the wavefront loop
+    (integrate/wavefront.py) over the payload trace K3
+    (kernels/bvh_packet.py), with the per-bounce ray sort when
+    ``cfg.sort_bounce_rays`` is on.
+
+The TPU's VMEM gates have no meaning on the GPU (ROADMAP.md A.19): every
+scene lives in device memory. The scene's device picks the implementation
+inside each kernel wrapper: a CUDA tensor runs the hand-written kernel, a
+CPU tensor its plain PyTorch twin. A config outside the ported slice
+raises NotImplementedError naming its ROADMAP.md item; nothing falls back
+to another integrator.
 
 SFVP_DISPATCH_DEBUG=1 prints the route taken (stderr, one line per
 selection).
@@ -29,17 +41,52 @@ def _dbg(choice: str, **why) -> None:
               file=sys.stderr, flush=True)
 
 
+def resolve_traversal(cfg: RenderConfig, buffers) -> str:
+    """"brute" or "bvh": "auto" takes the BVH above
+    ``cfg.brute_force_max_tris`` triangles."""
+    if cfg.traversal == "auto":
+        return ("brute" if buffers.num_tris <= cfg.brute_force_max_tris
+                else "bvh")
+    return cfg.traversal
+
+
 def select_render_step(cfg: RenderConfig, buffers,
-                       global_shape: Optional[tuple] = None) -> Callable:
-    """Returns ``render_step(state, row0=0) -> state``."""
+                       global_shape: Optional[tuple] = None,
+                       wide=None) -> Callable:
+    """Returns ``render_step(state, row0=0) -> state``. ``wide``: the
+    scene's host WideBVH (accel.wide.build_wide_from_buffers), which the
+    bvh route needs; the Renderer builds it once at set-up."""
     require_slice(cfg, buffers)
     dev = buffers.device
+    t = buffers.num_tris
+    if resolve_traversal(cfg, buffers) == "bvh":
+        if wide is None:
+            raise ValueError(
+                "the bvh route traces the scene's wide BVH: pass wide="
+                "accel.wide.build_wide_from_buffers(buffers)")
+        from .kernels.bvh_packet import device_wide
+
+        dw = device_wide(wide, dev)
+        if cfg.megakernel_regen:
+            from .kernels.megakernel_bvh import make_bvh_regen_render_step
+
+            _dbg("megakernel_bvh(fused regen)", tris=t, device=dev)
+            return make_bvh_regen_render_step(
+                cfg, buffers, dw, global_shape=global_shape)
+        from .integrate.wavefront import make_render_step
+        from .kernels.bvh_packet import make_packet_trace
+
+        _dbg("wavefront(packet kernels)", tris=t, device=dev,
+             sort=cfg.sort_bounce_rays)
+        return make_render_step(cfg, buffers, global_shape=global_shape,
+                                trace_payload_fn=make_packet_trace(
+                                    dw, t_min=cfg.t_min))
     if cfg.megakernel_regen:
         from .kernels.megakernel_regen import make_regen_render_step
 
-        _dbg("megakernel_regen(brute)", tris=buffers.num_tris, device=dev)
+        _dbg("megakernel_regen(brute)", tris=t, device=dev)
         return make_regen_render_step(cfg, buffers, global_shape=global_shape)
     from .kernels.megakernel import make_wave_render_step
 
-    _dbg("megakernel(chunked parity)", tris=buffers.num_tris, device=dev)
+    _dbg("megakernel(chunked parity)", tris=t, device=dev)
     return make_wave_render_step(cfg, buffers, global_shape=global_shape)

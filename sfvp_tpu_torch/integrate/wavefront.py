@@ -4,8 +4,15 @@ sfvp_tpu.integrate.wavefront and the port's in-package oracle.
 A wave of rays (pixels x samples) advances in lockstep through
 trace -> shade, vectorised over the wave; terminated rays are masked.
 ``trace_wave`` is also the body of the plain twins of the CUDA kernels
-(kernels/megakernel.py, kernels/megakernel_regen.py): it takes the colour
-to add into, so a twin can reproduce its kernel's summation order.
+(kernels/megakernel.py, kernels/megakernel_regen.py,
+kernels/megakernel_bvh.py): it takes the colour to add into, so a twin can
+reproduce its kernel's summation order, and a trace hook, so the same
+loop runs over brute force (``brute_surface``) or the wide BVH's payload
+trace (``payload_surface``, K3 on a CUDA tensor).
+
+Large scenes run here through ``make_render_step(...,
+trace_payload_fn=...)``, the payload path of sfvp_tpu's wavefront loop,
+with its per-bounce ray sort (``sort_key``) as an execution knob.
 
 Parity-mode semantics preserved exactly (ref shaders/raygen.rgen:41-91):
   - color += weight * emission on EVERY segment, including the miss segment
@@ -18,13 +25,13 @@ Parity-mode semantics preserved exactly (ref shaders/raygen.rgen:41-91):
   - progressive accumulation new = (color + old*frame)/(frame+1), in f32
 
 The subset is diffuse and mirror materials, uniform and cosine sampling,
-and Russian roulette. Everything else raises NotImplementedError in
-``require_slice`` and never falls back.
+and Russian roulette, over brute force or the wide BVH. Everything else
+raises NotImplementedError in ``require_slice`` and never falls back.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,15 +80,13 @@ def require_slice(cfg: RenderConfig, scene) -> None:
     mt = scene.mtype[: scene.num_tris].cpu().numpy()
     if np.any(mt >= 2):
         todo.append("GGX glossy and dielectric materials (ROADMAP.md A.12)")
-    if cfg.traversal == "bvh" or scene.num_tris > cfg.brute_force_max_tris:
-        todo.append(
-            f"BVH traversal ({scene.num_tris} triangles, brute force takes "
-            f"<= {cfg.brute_force_max_tris}; ROADMAP.md A.9-A.10)")
     if todo:
         raise NotImplementedError(
             "not ported to sfvp_tpu_torch yet: " + "; ".join(todo))
     if cfg.sampling not in ("uniform", "cosine"):
         raise ValueError(f"unknown sampling {cfg.sampling!r}")
+    if cfg.traversal not in ("auto", "brute", "bvh"):
+        raise ValueError(f"unknown traversal {cfg.traversal!r}")
     cfg.spp_chunks()  # raises on a chunk that does not divide spp
 
 
@@ -109,22 +114,120 @@ def shade_inputs(scene, hit):
     return position, normal, diffuse, emission, specular, scene.mtype[prim]
 
 
+def shade_from_payload(pay):
+    """Shading inputs from a payload trace (kernels/bvh_packet.py), as
+    sfvp_tpu's _shade_from_payload (wavefront.py:258-290), with 1/sqrt as
+    two correctly rounded ops where it calls rsqrt. The wide layout keeps
+    Ks in the albedo lanes of mirrors and packs mtype + roughness in one
+    lane (accel/wide.py). Returns (miss, position, normal, diffuse,
+    emission, specular, mtype)."""
+    miss = torch.isinf(pay.t)
+    w = 1.0 - pay.u - pay.v
+    position = vec.add(
+        vec.add(vec.scale(pay.p0, w), vec.scale(pay.p1, pay.u)),
+        vec.scale(pay.p2, pay.v),
+    )
+    nrm = vec.cross(vec.sub(pay.p1, pay.p0), vec.sub(pay.p2, pay.p0))
+    inv_len = vec.inv_sqrt(torch.clamp_min(vec.dot(nrm, nrm), 1e-30))
+    normal = vec.scale(nrm, -inv_len)
+    return (miss, position, normal, pay.albedo, pay.emission, pay.albedo,
+            torch.floor(pay.mtype))
+
+
+def brute_surface(cfg: RenderConfig, scene) -> Callable:
+    """Trace hook of ``trace_wave`` over every triangle of ``scene``:
+    ``surface(o, d, active) -> (miss, position, normal, diffuse, emission,
+    specular, mtype)``."""
+
+    def surface(o, d, active):
+        hit = trace_brute(o, d, scene, cfg.t_min, cfg.t_max, active=active)
+        return (hit.prim < 0, *shade_inputs(scene, hit))
+
+    return surface
+
+
+def payload_surface(cfg: RenderConfig, trace_payload_fn) -> Callable:
+    """Trace hook of ``trace_wave`` over a payload trace
+    ``trace_payload_fn(o, d, t_max, active) -> Payload``."""
+
+    def surface(o, d, active):
+        return shade_from_payload(
+            trace_payload_fn(o, d, cfg.t_max, active=active))
+
+    return surface
+
+
+def make_sort_key(cfg: RenderConfig, scene) -> Optional[Callable]:
+    """The per-bounce ray sort key of sfvp_tpu's payload path
+    (wavefront.py:200-256), or None when ``cfg.sort_bounce_rays`` is off:
+    ``key(o, d, done, prev_mtype) -> (N,) int32``, (material << 24) |
+    (direction octant << 21) | 7-bit-per-axis position morton, the
+    material bits only on scenes with mirrors and when
+    ``cfg.sort_material_key``; dead rays get 2**30. Sorting permutes the
+    rays of a wave and never changes a ray's result."""
+    if not cfg.sort_bounce_rays:
+        return None
+    sort_material = cfg.sort_material_key and has_mirror_faces(scene)
+    t = scene.num_tris
+    cols = {f: np.asarray(getattr(scene, f)[:t].cpu()) for f in (
+        "v0x", "v0y", "v0z", "v1x", "v1y", "v1z", "v2x", "v2y", "v2z")}
+    lo = np.asarray(
+        [min(cols[f"v{c}{a}"].min() for c in range(3)) for a in "xyz"],
+        np.float32)
+    hi = np.asarray(
+        [max(cols[f"v{c}{a}"].max() for c in range(3)) for a in "xyz"],
+        np.float32)
+    inv_extent = 1.0 / np.maximum(hi - lo, 1e-6)
+
+    def q7(c, a):
+        x = torch.clamp((c - float(lo[a])) * float(inv_extent[a]), 0.0, 1.0)
+        return (x * 127.0).to(torch.int32)
+
+    def expand7(v):
+        # interleave 7 bits with 2-bit gaps (morton, 21 bits total)
+        v = (v | (v << 8)) & 0x100F00F
+        v = (v | (v << 4)) & 0x10C30C3
+        v = (v | (v << 2)) & 0x1249249
+        return v
+
+    def key(o, d, done, prev_mtype):
+        morton = ((expand7(q7(o[0], 0)) << 2) | (expand7(q7(o[1], 1)) << 1)
+                  | expand7(q7(o[2], 2)))
+        octant = ((d[0] >= 0).to(torch.int32) * 4
+                  + (d[1] >= 0).to(torch.int32) * 2
+                  + (d[2] >= 0).to(torch.int32))
+        k = (octant << 21) | morton
+        if sort_material:
+            k = k | (torch.clamp(prev_mtype.to(torch.int32), 0, 3) << 24)
+        return torch.where(done, 2**30, k)
+
+    return key
+
+
 def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
                global_shape, color=None, has_mirrors: bool = False,
-               rr_every_depth: bool = True):
+               rr_every_depth: bool = True, surface=None, sort_key=None):
     """Trace one wave of camera paths: ray i is sample ``sample_ids[i]`` of
     global pixel (px[i], py[i]). Each segment's radiance is added into
     ``color`` (zeros when None) in depth order.
 
     ``rr_every_depth``: draw the roulette number at every depth, as the
-    wavefront integrator and K1 do; K2 draws it only from rr_start_depth
-    on (sfvp_tpu/kernels/megakernel.py:336), which shifts its later draws.
+    wavefront integrator, K1 and K5 do; K2 draws it only from
+    rr_start_depth on (sfvp_tpu/kernels/megakernel.py:336), which shifts
+    its later draws.
+
+    ``surface``: the trace hook (``brute_surface`` over ``scene`` when
+    None). ``sort_key`` (make_sort_key): reorder the wave by this key
+    before every bounce after the first, with one gather of the float
+    state and one of the integer state, and scatter the results back to
+    wave order at the end.
 
     Returns (color tuple of (M,) f32, segments traced per ray (M,) int32).
     """
     gh, gw = global_shape
     uniform = cfg.sampling == "uniform"
-    t_min, t_max = cfg.t_min, cfg.t_max
+    if surface is None:
+        surface = brute_surface(cfg, scene)
     seed = rng.sample_seed(px, py, sample_ids, frame, cfg.spp_per_step)
     r1, seed = rng.rand(seed)
     r2, seed = rng.rand(seed)
@@ -133,15 +236,26 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
     if color is None:
         color = vec.splat((0.0, 0.0, 0.0), like=o[0])
     sky = vec.splat([f32(s) for s in cfg.sky_emission], like=o[0])
-    done = torch.zeros(o[0].shape, dtype=torch.bool, device=o[0].device)
-    segs = torch.zeros(o[0].shape, dtype=torch.int32, device=o[0].device)
+    dev = o[0].device
+    done = torch.zeros(o[0].shape, dtype=torch.bool, device=dev)
+    segs = torch.zeros(o[0].shape, dtype=torch.int32, device=dev)
+    if sort_key is not None:
+        slot = torch.arange(o[0].shape[0], device=dev)
+        prev_mtype = torch.zeros(o[0].shape, device=dev)
 
     for depth in range(cfg.max_depth):
+        if sort_key is not None and depth > 0:
+            perm = torch.sort(sort_key(o, d, done, prev_mtype),
+                              stable=True).indices
+            fl = torch.stack([*o, *d, *weight, *color, prev_mtype])[:, perm]
+            it = torch.stack([seed, done.long(), segs.long(), slot])[:, perm]
+            o, d, weight, color = (tuple(fl[i:i + 3]) for i in (0, 3, 6, 9))
+            prev_mtype = fl[12]
+            seed, done, segs, slot = (it[0], it[1].bool(), it[2].int(),
+                                      it[3])
         active = torch.logical_not(done)
-        hit = trace_brute(o, d, scene, t_min, t_max, active=active)
-        miss = hit.prim < 0
-        position, normal, diffuse, emission, spec, mtype = shade_inputs(
-            scene, hit)
+        miss, position, normal, diffuse, emission, spec, mtype = surface(
+            o, d, active)
         emission = vec.where(miss, sky, emission)
         emit_w = active.to(torch.float32)
         color = vec.add(color, vec.scale(vec.mul(weight, emission), emit_w))
@@ -179,6 +293,13 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
         weight = vec.where(cont, vec.mul(weight, scale), weight)
         done = torch.logical_not(cont)
         segs += active.to(torch.int32)
+        if sort_key is not None:
+            prev_mtype = torch.where(cont, mtype.to(torch.float32), 0.0)
+    if sort_key is not None:
+        back = torch.empty_like(slot)
+        back[slot] = torch.arange(slot.shape[0], device=dev)
+        color = tuple(c[back] for c in color)
+        segs = segs[back]
     return color, segs
 
 
@@ -231,13 +352,20 @@ def sum_chunks(cfg: RenderConfig, npix: int, wave, device):
 
 
 def make_render_step(cfg: RenderConfig, scene,
-                     global_shape: Optional[tuple] = None):
+                     global_shape: Optional[tuple] = None,
+                     trace_payload_fn: Optional[Callable] = None):
     """Build ``render_step(state, row0=0) -> state`` for a (local) image of
     the shape of ``state.accum``, on the device of ``scene``.
 
     ``row0`` is the global row offset of this accumulator band; rays are
     generated in GLOBAL pixel coordinates of ``global_shape`` (default: the
     config's), so a band renders bitwise the rows of the full image.
+
+    ``trace_payload_fn(o, d, t_max, active) -> Payload``: trace through a
+    payload trace (kernels/bvh_packet.make_packet_trace, K3 on a CUDA
+    device) instead of brute force; then, when ``cfg.sort_bounce_rays`` is
+    on, every bounce after the first sorts the wave by ``make_sort_key``,
+    which never changes the image.
     """
     require_slice(cfg, scene)
     gshape = global_shape if global_shape is not None else (cfg.height,
@@ -245,6 +373,11 @@ def make_render_step(cfg: RenderConfig, scene,
     chunk = cfg.spp_chunk
     mirrors = has_mirror_faces(scene)
     dev = scene.device
+    if trace_payload_fn is None:
+        surface, sort_key = brute_surface(cfg, scene), None
+    else:
+        surface = payload_surface(cfg, trace_payload_fn)
+        sort_key = make_sort_key(cfg, scene)
 
     def render_step(state: RenderState, row0: int = 0) -> RenderState:
         h, w = state.accum.shape[0], state.accum.shape[1]
@@ -257,7 +390,8 @@ def make_render_step(cfg: RenderConfig, scene,
             s_ids = (chunk_idx * chunk
                      + torch.arange(chunk, device=dev)).repeat_interleave(n)
             color, seg = trace_wave(cfg, scene, px, py, s_ids, state.frame,
-                                    gshape, has_mirrors=mirrors)
+                                    gshape, has_mirrors=mirrors,
+                                    surface=surface, sort_key=sort_key)
             return (*color, seg)
 
         color_sum, segs = sum_chunks(cfg, n, wave, dev)

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-nvcc compiles every source into one shared library with a plain C
-interface, at first use, from the package's own sources; ctypes loads it.
+nvcc compiles each source to an object, all sources at once in parallel,
+and links the objects into one shared library with a plain C interface,
+at first use, from the package's own sources; ctypes loads it.
 The library's name carries a hash of the sources and flags, so an edited
 source is rebuilt and a finished build is reused. It lands in the
 directory named by the environment variable ``SFVP_TPU_TORCH_BUILD_DIR``,
@@ -38,11 +39,17 @@ BUILD_DIR = Path(os.environ.get(
     Path(__file__).resolve().parents[2] / "build" / "sfvp_tpu_torch"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 # 25 rows of float32 per triangle (csrc/common.cuh kSmemRows) in the 48 KB
 # of shared memory a block gets without opting in to more
 MAX_KERNEL_TRIS = 480
+# a ray's traversal stack in the BVH kernels (csrc/wide_bvh.cuh kMaxStack)
+MAX_WIDE_STACK = 256
+# child refs are stored as float32 in the node rows: exact below 2**24
+MAX_WIDE_ROWS = 1 << 24
+# K3's ray count is a C int (its plane offsets are size_t)
+MAX_WAVE_RAYS = 1 << 31
 
 
 class Params(ctypes.Structure):
@@ -56,6 +63,15 @@ class Params(ctypes.Structure):
             "det_eps")] + [
         (name, ctypes.c_float * 3) for name in (
             "cam_c", "cam_r", "cam_u", "cam_o", "sky")]
+
+
+class WideParams(ctypes.Structure):
+    """Mirror of ``sfvp::Wide`` in csrc/wide_bvh.cuh, field for field."""
+
+    _fields_ = [("nodes", ctypes.c_void_p), ("tris", ctypes.c_void_p)] + [
+        (name, ctypes.c_int) for name in (
+            "n_nodes", "n_leaf_rows", "max_stack")] + [
+        (name, ctypes.c_float) for name in ("t_min", "det_eps")]
 
 
 def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
@@ -104,24 +120,47 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless a build of these sources exists.
-    Raises with nvcc's output when the compile fails."""
+    """Compile the library unless a build of these sources exists: one
+    nvcc per source, all started together, then one link. Raises with
+    nvcc's output when a compile or the link fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    log = out.with_suffix(".log")
-    log.write_text(f"# {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s\n"
-                   + proc.stdout + proc.stderr)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    failed = []
+    for cmd, obj, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(f"# {' '.join(cmd)}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{text}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text(
+        f"# {time.perf_counter() - t0:.1f} s\n" + "".join(log))
     os.replace(tmp, out)
     return out
 
@@ -130,29 +169,94 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call in this process)."""
     lib = ctypes.CDLL(str(build()))
+    outs = [ctypes.c_void_p] * 5  # colr, colg, colb, segs, stream
     for fn in (lib.sfvp_regen_render, lib.sfvp_wave_render):
         fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(Params), ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       *outs]
         fn.restype = ctypes.c_int
+    lib.sfvp_bvh_regen_render.argtypes = [
+        ctypes.POINTER(WideParams), ctypes.POINTER(Params), ctypes.c_int,
+        *outs]
+    lib.sfvp_bvh_regen_render.restype = ctypes.c_int
+    lib.sfvp_bvh_trace.argtypes = [
+        ctypes.POINTER(WideParams), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.sfvp_bvh_trace.restype = ctypes.c_int
     return lib
 
 
-def launch(fn_name: str, table, params: Params, has_mirrors: bool,
+def launch(fn_name: str, scene, params: Params, has_mirrors: bool,
            n_out: int):
-    """Launch one kernel of the library on the current stream of the
-    table's device. Allocates and returns (colr, colg, colb, segs)."""
-    with torch.cuda.device(table.device):
+    """Launch one render kernel of the library on the current stream of
+    the scene's device; ``scene`` is the brute-force table tensor (K1, K2)
+    or the WideParams of a device BVH (K5). Allocates and returns (colr,
+    colg, colb, segs)."""
+    if isinstance(scene, WideParams):
+        device, scene_arg = scene.device, ctypes.byref(scene)
+    else:
+        device, scene_arg = scene.device, scene.data_ptr()
+    with torch.cuda.device(device):
         fn = getattr(library(), fn_name)
-        outs = [torch.empty(n_out, dtype=torch.float32, device=table.device)
+        outs = [torch.empty(n_out, dtype=torch.float32, device=device)
                 for _ in range(3)]
-        segs = torch.empty(n_out, dtype=torch.int32, device=table.device)
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = fn(table.data_ptr(), ctypes.byref(params), int(has_mirrors),
+        segs = torch.empty(n_out, dtype=torch.int32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(scene_arg, ctypes.byref(params), int(has_mirrors),
                  *(o.data_ptr() for o in outs), segs.data_ptr(), stream)
+    check_launch(fn_name, err)
+    return (*outs, segs)
+
+
+def launch_bvh_trace(wp: "WideParams", rays):
+    """K3 on the current stream of the rays' device: (7, N) ray planes in,
+    (19, N) payload planes out. N goes to the kernel as a C int, so a wave
+    holds fewer than 2**31 rays."""
+    n = rays.shape[1]
+    if n >= MAX_WAVE_RAYS:
+        raise ValueError(f"a K3 wave holds fewer than {MAX_WAVE_RAYS} rays "
+                         f"(a C int), got {n}")
+    with torch.cuda.device(rays.device):
+        out = torch.empty((19, n), dtype=torch.float32, device=rays.device)
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        err = library().sfvp_bvh_trace(ctypes.byref(wp), rays.data_ptr(), n,
+                                       out.data_ptr(), stream)
+    check_launch("sfvp_bvh_trace", err)
+    return out
+
+
+def check_launch(fn_name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-    return (*outs, segs)
+
+
+def wide_params(dw, t_min: float) -> WideParams:
+    """WideParams of a device BVH (kernels/bvh_packet.py DeviceWide) on a
+    CUDA device, after checking what the BVH kernels take: contiguous
+    float32 (rows, 128) tables, fewer than 2**24 rows (refs are float32),
+    max_stack within the kernels' stack. ``.device`` rides along for the
+    launch."""
+    if dw.max_stack > MAX_WIDE_STACK:
+        raise ValueError(
+            f"wide BVH max_stack {dw.max_stack} exceeds the kernels' "
+            f"traversal stack of {MAX_WIDE_STACK} entries")
+    for name, t in (("nodes", dw.nodes), ("tris", dw.tris)):
+        if t.shape[0] >= MAX_WIDE_ROWS:
+            raise ValueError(f"wide BVH {name} has {t.shape[0]} rows; refs "
+                             f"are float32, exact below {MAX_WIDE_ROWS}")
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels take a CUDA tensor, got "
+                             f"{name} on {t.device}")
+        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 128
+                or not t.is_contiguous()):
+            raise ValueError(f"wide BVH {name} must be a contiguous float32 "
+                             f"(rows, 128) tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    wp = WideParams(nodes=dw.nodes.data_ptr(), tris=dw.tris.data_ptr(),
+                    n_nodes=dw.nodes.shape[0], n_leaf_rows=dw.tris.shape[0],
+                    max_stack=dw.max_stack, t_min=f32(t_min),
+                    det_eps=_DET_EPS)
+    wp.device = dw.nodes.device
+    return wp
 
 
 def check_table(table, num_tris: int) -> None:

@@ -49,11 +49,13 @@ class Renderer:
 
     Each step updates the accumulator in place (integrate.accumulate), the
     counterpart of the JAX driver's donated state: the renderer owns its
-    state, so no caller sees the old one change.
+    state, so no caller sees the old one change. A scene on the BVH route
+    gets its wide BVH (``self.wide``) built once at set-up, in
+    ``self.bvh_build_s`` host seconds.
     """
 
     def __init__(self, cfg: RenderConfig, scene: Scene, device):
-        from ..dispatch import select_render_step
+        from ..dispatch import resolve_traversal, select_render_step
 
         if isinstance(scene, (list, tuple)):
             raise NotImplementedError(
@@ -61,7 +63,17 @@ class Renderer:
         self.cfg = cfg
         self.device = torch.device(device)
         self.buffers = upload(scene, device=self.device)
-        self._step = select_render_step(cfg, self.buffers)
+        # the wide BVH of a large scene, built once here on the host (the
+        # one place that builds it); select_render_step checks the config
+        self.wide = None
+        self.bvh_build_s = 0.0
+        if resolve_traversal(cfg, self.buffers) == "bvh":
+            from ..accel.wide import build_wide_from_buffers
+
+            t0 = time.perf_counter()
+            self.wide = build_wide_from_buffers(self.buffers)
+            self.bvh_build_s = time.perf_counter() - t0
+        self._step = select_render_step(cfg, self.buffers, wide=self.wide)
         self.state = init_state(cfg.height, cfg.width, self.device)
 
     def resume(self, checkpoint_path: str) -> None:

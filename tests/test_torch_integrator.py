@@ -169,9 +169,15 @@ def test_out_of_slice_raises(change):
         mt[0] = 2
         tb = from_arrays(s.triangles(), s.face_diffuse, s.face_emission,
                          mat_type=mt, device="cpu")
-    elif change == "bvh":
-        cfg = T.RenderConfig(traversal="bvh")
     else:
-        cfg = T.RenderConfig(brute_force_max_tris=20)
+        # the BVH route (forced, or "auto" above brute_force_max_tris)
+        # renders now; it still refuses what the slice does not run
+        from sfvp_tpu_torch.dispatch import select_render_step
+
+        bvh = (dict(traversal="bvh") if change == "bvh"
+               else dict(brute_force_max_tris=20))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):
+            select_render_step(T.RenderConfig(use_nee=True, **bvh), tb)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md A."):
         make_render_step(cfg, tb)
