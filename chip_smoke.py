@@ -48,10 +48,34 @@ The large-scene path (slice 2: the wide BVH, kernels K3 and K5), over the
  12. ray sort    the wavefront step over K3 at the main path's shape with
                  the per-bounce ray sort on and off: times, same image.
 
+Next-event estimation with MIS (slice 3: NEE inside K1 and K5, the any-hit
+kernel K4), cosine + RR, on the Cornell Box and on the city of ``--scene
+city --scene-tris 100000`` (82,782 triangles, 1,134 of them emissive):
+ 13. nee twins   K1 against its twin at 256x256, 8 spp, depth 8, NEE and
+                 NEE + MIS, on the Cornell Box and the mirror Cornell; K5
+                 against its twin at 128x128, 4 spp on the city and on the
+                 Cornell Box with traversal="bvh"; K4 against its twin on
+                 the shadow waves of one wavefront step on the city and on
+                 a random wave: every ray equal;
+ 14. nee oracle  K1 with NEE + MIS at 128x128, 32 spp x 32 steps: its mean
+                 within 1% of the numpy oracle's, and a lower relative
+                 RMSE against it than K1 cosine without NEE; K5 with
+                 traversal="bvh" against K1 at 256x256, 8 spp, NEE + MIS;
+ 15. nee main    the CLI on the Cornell Box at 1024x1024, 32 spp, depth 8,
+                 8 steps, --nee --mis --rr (K1 only); the CLI on the city
+                 at 1024x1024, 8 spp (K5 only, with its set-up seconds);
+                 one Renderer step on the city with megakernel_regen=False
+                 (K3 and K4, 64 launches each);
+ 16. nee times   K1 per NEE Cornell step, K5 per NEE city step and K4 per
+                 launch on the city's first-bounce shadow wave, CUDA
+                 events, each beside its twin and its bound; K1 and K5 held
+                 to their twins at these shapes.
+
 Each kernel's bound is the larger of the bytes it must move over 3.35
 TB/s and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's
 data-sheet rates); for the traversal kernels the operations are counted
-from the box and triangle tests the twins do on the same inputs.
+from the box and triangle tests the twins do on the same inputs, and for
+K1's shadow rays from the tests its early-exit scan takes on them.
 
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}.
@@ -97,6 +121,16 @@ HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 # 19 compares of the sorting network; the shading of one segment (camera
 # ray or scatter, roulette, accumulation), rounded down
 TRI_OPS_TABLE, TRI_OPS_ROWS, BOX_OPS, SORT_OPS, SHADE_OPS = 55, 61, 25, 19, 80
+# next-event estimation: the shading of one shadow ray (three draws, the
+# light pick, the point on the light, geometry term, MIS weight, the
+# colour), rounded down
+NEE_OPS = 60
+# the NEE path: the city of --scene city --scene-tris 100000, its CLI view
+CITY_TRIS, CITY_STEPS = 100_000, 4
+NEE_FLAGS = dict(sampling="cosine", use_rr=True, use_nee=True, use_mis=True)
+NEE_CLI = ["--sampling", "cosine", "--rr", "--nee", "--mis"]
+NEE_ORACLE_MEAN = 0.01
+NEE_TWIN_SIZE, NEE_TWIN_SPP = 256, 8
 
 
 def check(cond, msg):
@@ -289,7 +323,7 @@ def main_path_phase(tmp):
     k2_img = k2.run(K2_STEPS, progress=False)
     launches = read_counts()
     print(f"  launches during the main path: {launches}")
-    check(launches["K3"] == launches["K5"] == 0,
+    check(launches["K3"] == launches["K4"] == launches["K5"] == 0,
           f"BVH kernels launched on the Cornell path: {launches}")
     check(rc == 0, f"cli returned {rc}")
     check(launches["K1"] == MAIN_STEPS,
@@ -370,6 +404,23 @@ def timing_phase():
     return times, worst
 
 
+def tree_nbytes(wide):
+    """Distinct bytes of the tree: the 64 used lanes of a node row, the 128
+    lanes of a leaf row."""
+    return (wide.nodes.shape[0] * 64 + wide.tris.shape[0] * 128) * 4
+
+
+def walk_ops(node_pops, leaf_pops, sort=True):
+    """FP32 operations of a BVH walk's pops: the closest-hit walk sorts the
+    children it pushes (``sort``), the any-hit walk does not."""
+    return (node_pops * (8 * BOX_OPS + (SORT_OPS if sort else 0))
+            + leaf_pops * 8 * TRI_OPS_ROWS)
+
+
+def traversal_ops(counts):
+    return walk_ops(counts["node_pops"], counts["leaf_pops"])
+
+
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of the two least times."""
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -377,27 +428,31 @@ def bound(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sphere_setup(tris, **cfg_kw):
-    """The CLI's bumpy sphere of about ``tris`` triangles with its view and
-    sky, cosine + RR, on the card, with its wide BVH built once."""
+def scene_setup(name, tris, **cfg_kw):
+    """The CLI's procedural scene ``name`` (the bumpy sphere, or the city)
+    of about ``tris`` triangles with its view and sky, cosine + RR, on the
+    card, with its wide BVH built once, and its light table."""
     from sfvp_tpu_torch import RenderConfig, upload
     from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
     from sfvp_tpu_torch.cli import procedural_scene
+    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
     from sfvp_tpu_torch.kernels.bvh_packet import device_wide
 
     kw = dict(width=BVH_W, height=BVH_H, spp_per_step=BVH_SPP,
               max_depth=BVH_DEPTH, sampling="cosine", use_rr=True)
     kw.update(cfg_kw)
-    scene, cfg = procedural_scene("sphere", tris, RenderConfig(**kw))
+    scene, cfg = procedural_scene(name, tris, RenderConfig(**kw))
     buffers = upload(scene, device=DEVICE)
     t0 = time.perf_counter()
     wide = build_wide_from_buffers(buffers)
-    print(f"  sphere: {buffers.num_tris} triangles, wide BVH "
+    lights = build_light_table_from_buffers(buffers)
+    print(f"  {name}: {buffers.num_tris} triangles "
+          f"({lights.num if lights else 0} emissive), wide BVH "
           f"{wide.nodes.shape[0]} nodes + {wide.tris.shape[0]} leaf rows, "
           f"max_stack {wide.max_stack}, built in "
           f"{time.perf_counter() - t0:.2f} s")
     return dict(scene=scene, cfg=cfg, buffers=buffers, wide=wide,
-                dw=device_wide(wide, DEVICE))
+                dw=device_wide(wide, DEVICE), lights=lights)
 
 
 def capture_waves(cfg, sphere, calls):
@@ -502,38 +557,49 @@ def bvh_twin_phase(sphere):
     return worst
 
 
-def k5_vs_k1_phase():
+def k5_vs_k1_phase(nee=False):
+    """K5 with traversal="bvh" against K1 on the Cornell Box, parity or
+    (``nee``) cosine + RR with NEE + MIS."""
     from sfvp_tpu_torch import RenderConfig
     from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
+    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
     from sfvp_tpu_torch.kernels.bvh_packet import device_wide
     from sfvp_tpu_torch.kernels.megakernel import scene_table
     from sfvp_tpu_torch.kernels.megakernel_bvh import bvh_regen_render
     from sfvp_tpu_torch.kernels.megakernel_regen import regen_render
 
     n, spp = K5_K1_SIZE, 8
+    what = "cosine + RR, NEE + MIS" if nee else "parity"
     phase(f"K5 (traversal='bvh') against K1 on the Cornell Box at {n}x{n}, "
-          f"{spp} spp, depth 8: the same streams")
+          f"{spp} spp, depth 8, {what}: the same streams")
     for mirrors in (False, True):
         buffers = cornell_buffers(DEVICE, mirrors)
-        cfg = RenderConfig(width=n, height=n, spp_per_step=spp, max_depth=8)
-        args = dict(global_shape=(n, n), npix=n * n, has_mirrors=mirrors)
+        cfg = RenderConfig(width=n, height=n, spp_per_step=spp, max_depth=8,
+                           **(NEE_FLAGS if nee else {}))
+        args = dict(global_shape=(n, n), npix=n * n, has_mirrors=mirrors,
+                    lights=build_light_table_from_buffers(buffers))
         k1 = regen_render(scene_table(buffers), 2, 0, cfg=cfg,
                           num_tris=buffers.num_tris, **args)
         k5 = bvh_regen_render(
             device_wide(build_wide_from_buffers(buffers), DEVICE), 2, 0,
             cfg=dataclasses.replace(cfg, traversal="bvh"), **args)
-        compare("K5 vs K1" + (" mirror" if mirrors else ""), k5, k1, spp,
-                K5_K1_REL_RMSE)
+        compare("K5 vs K1" + (" nee" if nee else "")
+                + (" mirror" if mirrors else ""), k5, k1, spp, K5_K1_REL_RMSE)
 
 
 def counters():
-    from sfvp_tpu_torch.kernels.bvh_packet import packet_trace
+    from sfvp_tpu_torch.kernels.bvh_packet import packet_occlusion, packet_trace
     from sfvp_tpu_torch.kernels.megakernel import wave_render
     from sfvp_tpu_torch.kernels.megakernel_bvh import bvh_regen_render
     from sfvp_tpu_torch.kernels.megakernel_regen import regen_render
 
     return {"K1": regen_render, "K2": wave_render, "K3": packet_trace,
-            "K5": bvh_regen_render}
+            "K4": packet_occlusion, "K5": bvh_regen_render}
+
+
+def only(**launched):
+    """The launch counts of a run in which only the named kernels ran."""
+    return {k: launched.get(k, 0) for k in counters()}
 
 
 def reset_counts():
@@ -603,7 +669,7 @@ def bvh_main_path_phase(tmp):
         "--height", str(BVH_H), "--steps", str(BVH_STEPS)])
     runs["cli_100k"] = read_counts()
     print(f"  launches: {runs['cli_100k']}")
-    check(runs["cli_100k"] == {"K1": 0, "K2": 0, "K3": 0, "K5": BVH_STEPS},
+    check(runs["cli_100k"] == only(K5=BVH_STEPS),
           f"cli sphere launches {runs['cli_100k']}")
     check(len(recs) == BVH_STEPS, f"{len(recs)} log records")
     print_steps(recs)
@@ -623,8 +689,7 @@ def bvh_main_path_phase(tmp):
     per_step = BVH_SPP * BVH_DEPTH
     print(f"  launches: {runs['renderer_k3']}; set-up: wide BVH built in "
           f"{r.bvh_build_s:.2f} s")
-    check(runs["renderer_k3"] == {"K1": 0, "K2": 0, "K3": K3_STEPS * per_step,
-                                  "K5": 0},
+    check(runs["renderer_k3"] == only(K3=K3_STEPS * per_step),
           f"wavefront launches {runs['renderer_k3']}")
     print_steps([json.loads(x) for x in open(log).read().splitlines()])
     check_image("K3 wavefront sphere", img, BVH_H, BVH_W)
@@ -635,7 +700,7 @@ def bvh_main_path_phase(tmp):
         "--height", str(BIG_H), "--steps", str(BIG_STEPS)])
     runs["cli_500k"] = read_counts()
     print(f"  launches: {runs['cli_500k']}")
-    check(runs["cli_500k"] == {"K1": 0, "K2": 0, "K3": 0, "K5": BIG_STEPS},
+    check(runs["cli_500k"] == only(K5=BIG_STEPS),
           f"cli 500k sphere launches {runs['cli_500k']}")
     print_steps(recs)
     check_image("K5 500k sphere", img, BIG_H, BIG_W)
@@ -652,14 +717,7 @@ def bvh_timing_phase(sphere):
           "events")
     cfg, dw, wide = sphere["cfg"], sphere["dw"], sphere["wide"]
     npix = BVH_W * BVH_H
-    # distinct bytes of the tree: the 64 used lanes of a node row, the
-    # 128 lanes of a leaf row
-    tree_bytes = (wide.nodes.shape[0] * 64 + wide.tris.shape[0] * 128) * 4
-
-    def traversal_ops(counts):
-        return (counts["node_pops"] * (8 * BOX_OPS + SORT_OPS)
-                + counts["leaf_pops"] * 8 * TRI_OPS_ROWS)
-
+    tree_bytes = tree_nbytes(wide)
     args = dict(cfg=cfg, global_shape=(BVH_H, BVH_W), npix=npix,
                 has_mirrors=False)
     ms, got = cuda_ms(lambda: bvh_regen_render(dw, 1, 0, **args), 5)
@@ -707,7 +765,7 @@ def big_sphere_phase(sphere):
     phase(f"bvh 500k: K5 vs twin on the {BIG_TRIS}-triangle sphere at "
           f"{BIG_W}x{BIG_H}, {BVH_SPP} spp, depth {BVH_DEPTH}, cosine + RR; "
           "K5 on both trees at that size, CUDA events")
-    big = sphere_setup(BIG_TRIS, width=BIG_W, height=BIG_H)
+    big = scene_setup("sphere", BIG_TRIS, width=BIG_W, height=BIG_H)
     npix = BIG_W * BIG_H
     worst = 0.0
     for name, s in (("500k", big), ("100k", sphere)):
@@ -762,12 +820,321 @@ def sort_phase(sphere):
     return ms
 
 
-def kernel_entry(name, source, replaces, per, launches, worst, times):
+def capture_shadow_waves(cfg, s, calls):
+    """The (7, N) shadow-ray planes that K4 receives at the given calls of
+    one wavefront step of ``cfg`` (call c = bounce c of the first
+    sample), NEE on."""
+    from sfvp_tpu_torch import init_state
+    from sfvp_tpu_torch.dispatch import select_render_step
+    from sfvp_tpu_torch.kernels import bvh_packet
+
+    # the occlusion hook passes each wave's planes to packet_occlusion
+    real, seen = bvh_packet.packet_occlusion, {"n": 0}
+
+    def spy(dw, t_min, rays):
+        if seen["n"] in calls:
+            seen[seen["n"]] = rays.clone()
+        seen["n"] += 1
+        return real(dw, t_min, rays)
+
+    # the wrapper counts its launches on the module's packet_occlusion
+    spy.launches = real.launches
+    bvh_packet.packet_occlusion = spy
+    try:
+        step = select_render_step(
+            dataclasses.replace(cfg, megakernel_regen=False), s["buffers"],
+            wide=s["wide"])
+        step(init_state(cfg.height, cfg.width, DEVICE))
+    finally:
+        bvh_packet.packet_occlusion = real
+        real.launches = spy.launches
+    return [seen[c] for c in calls]
+
+
+def compare_k4(label, dw, t_min, rays, got=None, exp=None):
+    """Hold K4's answers against its twin's: equal on every ray."""
+    from sfvp_tpu_torch.kernels.bvh_packet import (
+        packet_occlusion, packet_occlusion_plain)
+
+    if got is None:
+        got = packet_occlusion(dw, t_min, rays)
+    if exp is None:
+        exp = packet_occlusion_plain(dw, t_min, rays)
+    same = float((got == exp).float().mean())
+    print(f"  K4 {label:14s} {rays.shape[1]} rays, "
+          f"{int((rays[6] > t_min).sum())} with a window, "
+          f"{int(exp.sum())} occluded; equal on {same:.6f} of rays")
+    check(same == 1.0, f"K4 {label} disagrees with its twin on "
+                       f"{1.0 - same} of rays")
+    return float((got.float() - exp.float()).abs().max())
+
+
+def nee_twin_phase(city):
+    from sfvp_tpu_torch import RenderConfig
+    from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
+    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
+    from sfvp_tpu_torch.kernels.bvh_packet import device_wide, ray_planes
+    from sfvp_tpu_torch.kernels.megakernel import scene_table
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render, bvh_regen_render_plain)
+    from sfvp_tpu_torch.kernels.megakernel_regen import (
+        regen_render, regen_render_plain)
+
+    n, spp = NEE_TWIN_SIZE, NEE_TWIN_SPP
+    phase(f"nee twins: K1 at {n}x{n}, {spp} spp, K5 at {BVH_TWIN_SIZE}x"
+          f"{BVH_TWIN_SIZE}, {BVH_TWIN_SPP} spp, depth 8, cosine + RR, NEE "
+          f"and NEE + MIS; K4 on {2 * BVH_TWIN_SIZE}^2-ray shadow waves")
+    worst = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
+    for mirrors in (False, True):
+        buffers = cornell_buffers(DEVICE, mirrors)
+        table = scene_table(buffers)
+        lights = build_light_table_from_buffers(buffers)
+        for mis in (False, True):
+            cfg = RenderConfig(width=n, height=n, spp_per_step=spp,
+                               max_depth=8, **dict(NEE_FLAGS, use_mis=mis))
+            args = dict(cfg=cfg, num_tris=buffers.num_tris,
+                        global_shape=(n, n), npix=n * n, has_mirrors=mirrors,
+                        lights=lights)
+            got = regen_render(table, 3, 0, **args)
+            exp = regen_render_plain(table, 3, 0, **args)
+            label = ("K1 nee" + ("+mis" if mis else "")
+                     + (" mirror" if mirrors else ""))
+            worst["K1"] = max(worst["K1"], compare(label, got, exp, spp))
+
+    n = BVH_TWIN_SIZE
+    cornell = cornell_buffers(DEVICE)
+    cases = {
+        "city": (city["dw"], city["lights"], dataclasses.replace(
+            city["cfg"], width=n, height=n, spp_per_step=BVH_TWIN_SPP)),
+        "cornell": (
+            device_wide(build_wide_from_buffers(cornell), DEVICE),
+            build_light_table_from_buffers(cornell),
+            RenderConfig(width=n, height=n, spp_per_step=BVH_TWIN_SPP,
+                         max_depth=BVH_DEPTH, traversal="bvh", **NEE_FLAGS)),
+    }
+    for case, (dw, lights, cfg) in cases.items():
+        args = dict(cfg=cfg, global_shape=(n, n), npix=n * n,
+                    has_mirrors=False, lights=lights)
+        got = bvh_regen_render(dw, 3, 0, **args)
+        exp = bvh_regen_render_plain(dw, 3, 0, **args)
+        worst["K5"] = max(worst["K5"], compare(
+            f"K5 nee {case}", got, exp, BVH_TWIN_SPP, K5_TWIN_REL_RMSE))
+
+    cfg, dw = city["cfg"], city["dw"]
+    size = 2 * BVH_TWIN_SIZE
+    first, second = capture_shadow_waves(dataclasses.replace(
+        cfg, width=size, height=size, spp_per_step=1), city, (0, 1))
+    g = np.random.default_rng(0)
+    m = size * size
+    o = torch.tensor(g.uniform(-10.0, 10.0, (3, m)), dtype=torch.float32,
+                     device=DEVICE)
+    o[1] = o[1].abs() * 0.4
+    d = torch.tensor(g.normal(size=(3, m)), dtype=torch.float32,
+                     device=DEVICE)
+    d = d / d.norm(dim=0)
+    tmax = torch.tensor(g.uniform(0.0, 25.0, m), dtype=torch.float32,
+                        device=DEVICE)
+    active = torch.tensor(g.uniform(size=m) > 0.1, device=DEVICE)
+    random = ray_planes(tuple(o), tuple(d), tmax, active)
+    worst["K4"] = max(compare_k4(label, dw, cfg.t_min, rays)
+                      for label, rays in (("first bounce", first),
+                                          ("second bounce", second),
+                                          ("random", random)))
+    return worst
+
+
+def nee_oracle_phase():
+    """K1 with NEE + MIS against the numpy oracle of the reference's own
+    estimator: the same expectation, less noise than K1 cosine alone."""
+    from sfvp_tpu_torch import RenderConfig, init_state
+    from sfvp_tpu_torch.kernels.megakernel_regen import make_regen_render_step
+
+    phase("nee oracle: K1 cosine with and without NEE + MIS at 128x128, "
+          "32 spp x 32 steps vs the numpy oracle")
+    with np.load(os.path.join(ROOT, "tests", "golden",
+                              "oracle_128_1024spp.npz")) as z:
+        ref = torch.from_numpy(z["accum"]).to(DEVICE)
+        frames, spp = int(z["frames"]), int(z["spp"])
+    buffers = cornell_buffers(DEVICE)
+    res = {}
+    for name, kw in (("cosine", {}),
+                     ("cosine+nee+mis", dict(use_nee=True, use_mis=True))):
+        cfg = RenderConfig(width=128, height=128, spp_per_step=spp,
+                           max_depth=8, sampling="cosine", **kw)
+        step = make_regen_render_step(cfg, buffers)
+        st = init_state(128, 128, DEVICE)
+        for _ in range(frames):
+            st = step(st)
+        mean = float(st.accum.mean())
+        res[name] = (rel_rmse(st.accum, ref),
+                     abs(mean - float(ref.mean())) / float(ref.mean()))
+        print(f"  K1 {name:15s} mean {mean:.5f} (oracle "
+              f"{float(ref.mean()):.5f}, rel diff {res[name][1]:.3e}); "
+              f"relative RMSE vs oracle {res[name][0]:.3e}")
+    rel, mean_rel = res["cosine+nee+mis"]
+    check(mean_rel < NEE_ORACLE_MEAN,
+          f"K1 NEE + MIS mean {mean_rel} off the oracle's")
+    check(rel < res["cosine"][0],
+          f"K1 NEE + MIS relative RMSE {rel} not below cosine's "
+          f"{res['cosine'][0]}")
+
+
+def nee_main_path_phase(tmp):
+    from sfvp_tpu_torch import Renderer, cli
+    from sfvp_tpu_torch.cli import procedural_scene
+
+    phase(f"nee main path: cli {' '.join(NEE_CLI)} on the Cornell Box at "
+          f"{MAIN_W}x{MAIN_H}, {MAIN_SPP} spp, {MAIN_STEPS} steps (K1); on "
+          f"the city ({CITY_TRIS} triangles) at {BVH_W}x{BVH_H}, {BVH_SPP} "
+          f"spp, {CITY_STEPS} steps (K5); Renderer with "
+          f"megakernel_regen=False, 1 step (K3 + K4)")
+    runs = {}
+    out = os.path.join(tmp, "cornell_nee.png")
+    log = os.path.join(tmp, "cornell_nee.jsonl")
+    reset_counts()
+    rc = cli.main(["--device", DEVICE, "--width", str(MAIN_W), "--height",
+                   str(MAIN_H), "--spp", str(MAIN_SPP), "--max-depth",
+                   str(MAIN_DEPTH), "--steps", str(MAIN_STEPS), *NEE_CLI,
+                   "--out", out, "--log", log, "--quiet"])
+    runs["cli_cornell"] = read_counts()
+    print(f"  launches: {runs['cli_cornell']}")
+    check(rc == 0, f"cli returned {rc}")
+    check(runs["cli_cornell"] == only(K1=MAIN_STEPS),
+          f"cli Cornell NEE launches {runs['cli_cornell']}")
+    recs = [json.loads(x) for x in open(log).read().splitlines()]
+    check(len(recs) == MAIN_STEPS, f"{len(recs)} log records")
+    print_steps(recs)
+    check_image("K1 nee", _read_png(out), MAIN_H, MAIN_W)
+
+    reset_counts()
+    setup, recs, img = run_cli(tmp, "city", [
+        "--scene", "city", "--scene-tris", str(CITY_TRIS), *NEE_CLI,
+        "--width", str(BVH_W), "--height", str(BVH_H), "--spp",
+        str(BVH_SPP), "--max-depth", str(BVH_DEPTH), "--steps",
+        str(CITY_STEPS)])
+    runs["cli_city"] = read_counts()
+    print(f"  launches: {runs['cli_city']}")
+    check(runs["cli_city"] == only(K5=CITY_STEPS),
+          f"cli city launches {runs['cli_city']}")
+    check(len(recs) == CITY_STEPS, f"{len(recs)} log records")
+    print_steps(recs)
+    check_image("K5 nee city", img, BVH_H, BVH_W)
+
+    from sfvp_tpu_torch import RenderConfig
+
+    scene, cfg = procedural_scene("city", CITY_TRIS, RenderConfig(
+        width=BVH_W, height=BVH_H, spp_per_step=BVH_SPP,
+        max_depth=BVH_DEPTH, megakernel_regen=False, **NEE_FLAGS))
+    log = os.path.join(tmp, "k3k4.jsonl")
+    reset_counts()
+    r = Renderer(cfg, scene, DEVICE)
+    img = r.run(1, log_path=log, progress=False)
+    runs["renderer_k3k4"] = read_counts()
+    per_step = BVH_SPP * BVH_DEPTH
+    print(f"  launches: {runs['renderer_k3k4']}; set-up: wide BVH built in "
+          f"{r.bvh_build_s:.2f} s")
+    check(runs["renderer_k3k4"] == only(K3=per_step, K4=per_step),
+          f"wavefront NEE launches {runs['renderer_k3k4']}")
+    print_steps([json.loads(x) for x in open(log).read().splitlines()])
+    check_image("K3 + K4 wavefront city", img, BVH_H, BVH_W)
+    return runs
+
+
+def nee_timing_phase(city):
+    from sfvp_tpu_torch import RenderConfig
+    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
+    from sfvp_tpu_torch.kernels.bvh_packet import (
+        packet_occlusion, packet_occlusion_plain)
+    from sfvp_tpu_torch.kernels.megakernel import scene_table
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render, bvh_regen_render_plain)
+    from sfvp_tpu_torch.kernels.megakernel_regen import (
+        regen_render, regen_render_plain)
+
+    phase(f"nee times and twin check at the main paths' shapes (Cornell "
+          f"{MAIN_W}x{MAIN_H}, {MAIN_SPP} spp; city {BVH_W}x{BVH_H}, "
+          f"{BVH_SPP} spp; depth 8, cosine + RR + NEE + MIS), CUDA events")
+    times, worst = {}, {}
+
+    buffers = cornell_buffers(DEVICE)
+    table = scene_table(buffers)
+    lights = build_light_table_from_buffers(buffers)
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, spp_per_step=MAIN_SPP,
+                       max_depth=MAIN_DEPTH, **NEE_FLAGS)
+    args = dict(cfg=cfg, num_tris=buffers.num_tris,
+                global_shape=(MAIN_H, MAIN_W), npix=MAIN_W * MAIN_H,
+                has_mirrors=False, lights=lights)
+    ms, got = cuda_ms(lambda: regen_render(table, 1, 0, **args), 10)
+    counts = {}
+    plain, exp = cuda_ms(lambda: regen_render_plain(
+        table, 1, 0, counts=counts, **args), 1, warm=False)
+    print(f"  K1 nee: kernel {ms:.3f} ms/step, plain twin {plain:.1f} "
+          f"ms/step; {counts}")
+    worst["K1"] = compare("K1 nee main", got, exp, MAIN_SPP)
+    segs = int(exp[3].sum(dtype=torch.int64))
+    # every segment tests all triangles, every shadow ray until its first
+    # hit; bytes: the table and the light table once, the outputs once
+    ops = (segs * (buffers.num_tris * TRI_OPS_TABLE + SHADE_OPS)
+           + counts["shadow_tests"] * TRI_OPS_TABLE
+           + counts["shadow_rays"] * NEE_OPS)
+    nbytes = (table.numel() + lights.rows.numel()) * 4 + MAIN_W * MAIN_H * 16
+    times["K1"] = (ms, plain) + bound(ops, nbytes)
+    print(f"  K1 nee: {segs} segments, bound {times['K1'][2]:.3f} ms "
+          f"({times['K1'][3]})")
+
+    cfg, dw, wide = city["cfg"], city["dw"], city["wide"]
+    npix = BVH_W * BVH_H
+    args = dict(cfg=cfg, global_shape=(BVH_H, BVH_W), npix=npix,
+                has_mirrors=False, lights=city["lights"])
+    ms, got = cuda_ms(lambda: bvh_regen_render(dw, 1, 0, **args), 5)
+    counts = {}
+    plain, exp = cuda_ms(lambda: bvh_regen_render_plain(
+        dw, 1, 0, counts=counts, **args), 1, warm=False)
+    print(f"  K5 nee city: kernel {ms:.3f} ms/step, plain twin {plain:.1f} "
+          f"ms/step; twin pops {counts}")
+    worst["K5"] = compare("K5 nee city", got, exp, BVH_SPP, K5_TWIN_REL_RMSE)
+    segs = int(exp[3].sum(dtype=torch.int64))
+    ops = (traversal_ops(counts) + segs * SHADE_OPS
+           + walk_ops(counts["shadow_node_pops"], counts["shadow_leaf_pops"],
+                      sort=False)
+           + counts["shadow_rays"] * NEE_OPS)
+    nbytes = (tree_nbytes(wide) + city["lights"].rows.numel() * 4
+              + npix * 16)
+    times["K5"] = (ms, plain) + bound(ops, nbytes)
+    print(f"  K5 nee city: {segs} segments, bound {times['K5'][2]:.3f} ms "
+          f"({times['K5'][3]})")
+
+    rays = capture_shadow_waves(dataclasses.replace(cfg, spp_per_step=1),
+                                city, (0,))[0]
+    ms, got = cuda_ms(lambda: packet_occlusion(dw, cfg.t_min, rays), 20)
+    counts = {}
+    plain, exp = cuda_ms(lambda: packet_occlusion_plain(
+        dw, cfg.t_min, rays, counts), 1, warm=False)
+    worst["K4"] = compare_k4("first bounce", dw, cfg.t_min, rays, got=got,
+                             exp=exp)
+    b = bound(walk_ops(counts["node_pops"], counts["leaf_pops"], sort=False),
+              tree_nbytes(wide) + rays.shape[1] * (7 * 4 + 1))
+    times["K4"] = (ms, plain) + b
+    print(f"  K4 first bounce: kernel {ms:.3f} ms/launch, plain twin "
+          f"{plain:.1f} ms; pops {counts}; bound {b[0]:.3f} ms ({b[1]})")
+    return times, worst
+
+
+def kernel_entry(name, source, replaces, per, launches, worst, times,
+                 nee=None):
+    """One kernel of the report; ``nee``: (per, launches, worst, times) of
+    its run under next-event estimation, where it has one."""
     ms, plain, bound_ms, bound_by = times
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": worst,
-            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "per": per}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "max_abs_err": worst,
+             "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None, "per": per}
+    if nee is not None:
+        per, launches, worst, (ms, plain, bound_ms, bound_by) = nee
+        entry["nee"] = {"per": per, "launches": launches,
+                        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+    return entry
 
 
 def main() -> int:
@@ -780,7 +1147,7 @@ def main() -> int:
     times, worst_main = timing_phase()
     worst = {k: max(worst[k], worst_main[k]) for k in worst}
 
-    sphere = sphere_setup(SPHERE_TRIS)
+    sphere = scene_setup("sphere", SPHERE_TRIS)
     worst.update(bvh_twin_phase(sphere))
     oracle_phase(True)
     k5_vs_k1_phase()
@@ -791,12 +1158,28 @@ def main() -> int:
     worst = {k: max(worst[k], bvh_worst.get(k, 0.0)) for k in worst}
     worst["K5"] = max(worst["K5"], big_sphere_phase(sphere))
     sort_phase(sphere)
+    del sphere
+
+    city = scene_setup("city", CITY_TRIS, **NEE_FLAGS)
+    check(city["lights"] is not None, "the city has no emissive triangle")
+    nee_worst = nee_twin_phase(city)
+    nee_oracle_phase()
+    k5_vs_k1_phase(nee=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        nee_runs = nee_main_path_phase(tmp)
+    nee_times, nee_main_worst = nee_timing_phase(city)
+    nee_worst = {k: max(v, nee_main_worst[k]) for k, v in nee_worst.items()}
 
     step = f"step ({MAIN_W}x{MAIN_H}, {MAIN_SPP} spp, Cornell)"
+    city_step = (f"step ({BVH_W}x{BVH_H}, {BVH_SPP} spp, city, cosine + RR "
+                 "+ NEE + MIS)")
     report = {"kernels": [
         kernel_entry("regen_render (K1)", "sfvp_tpu_torch/csrc/regen_render.cu",
                      "sfvp_tpu/kernels/megakernel_regen.py:1137", step,
-                     launches["K1"], worst["K1"], times["K1"]),
+                     launches["K1"], worst["K1"], times["K1"],
+                     nee=(f"{step[:-1]}, cosine + RR + NEE + MIS)",
+                          nee_runs["cli_cornell"]["K1"], nee_worst["K1"],
+                          nee_times["K1"])),
         kernel_entry("wave_render (K2)", "sfvp_tpu_torch/csrc/wave_render.cu",
                      "sfvp_tpu/kernels/megakernel.py:366",
                      f"{step}: {MAIN_SPP} launches",
@@ -806,12 +1189,21 @@ def main() -> int:
                      f"launch on the {BVH_W}x{BVH_H} first-bounce wave "
                      f"({SPHERE_TRIS // 1000}k sphere)",
                      bvh_runs["renderer_k3"]["K3"], worst["K3"], times["K3"]),
+        kernel_entry("bvh_occlusion (K4)",
+                     "sfvp_tpu_torch/csrc/bvh_occlusion.cu",
+                     "sfvp_tpu/kernels/bvh_packet.py:635",
+                     f"launch on the {BVH_W}x{BVH_H} first-bounce shadow "
+                     "wave (city)",
+                     nee_runs["renderer_k3k4"]["K4"], nee_worst["K4"],
+                     nee_times["K4"]),
         kernel_entry("bvh_regen_render (K5)",
                      "sfvp_tpu_torch/csrc/bvh_regen_render.cu",
                      "sfvp_tpu/kernels/megakernel_bvh.py:2326",
                      f"step ({BVH_W}x{BVH_H}, {BVH_SPP} spp, "
                      f"{SPHERE_TRIS // 1000}k sphere)",
-                     bvh_runs["cli_100k"]["K5"], worst["K5"], times["K5"]),
+                     bvh_runs["cli_100k"]["K5"], worst["K5"], times["K5"],
+                     nee=(city_step, nee_runs["cli_city"]["K5"],
+                          nee_worst["K5"], nee_times["K5"])),
     ]}
     print(card)
     print(json.dumps(report))

@@ -7,9 +7,11 @@ Example:
     python -m sfvp_tpu_torch.cli --scene sphere --scene-tris 100000 \
         --sampling cosine --rr --spp 8 --steps 4 --out sphere.png
 
-Flags of features not ported yet (--nee, --mis, --env-map, --lens-radius,
---focus-dist, --dist, --adaptive, --scene instanced) raise
-NotImplementedError.
+    python -m sfvp_tpu_torch.cli --sampling cosine --rr --nee --mis \
+        --steps 8 --out cornell_nee.png
+
+Flags of features not ported yet (--env-map, --lens-radius, --focus-dist,
+--dist, --adaptive, --scene instanced) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,9 +57,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--log", default=None, help="JSONL metrics sink")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--nee", action="store_true",
+                   help="enable next-event estimation")
+    p.add_argument("--mis", action="store_true",
+                   help="balance-heuristic MIS between NEE and BSDF "
+                        "sampling (implies --nee)")
     # not ported yet: each raises NotImplementedError when used
-    p.add_argument("--nee", action="store_true")
-    p.add_argument("--mis", action="store_true")
     p.add_argument("--env-map", default=None)
     p.add_argument("--lens-radius", type=float, default=0.0)
     p.add_argument("--focus-dist", type=float, default=0.0)
@@ -67,8 +72,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _NOT_PORTED = {
-    "nee": "next-event estimation (ROADMAP.md A.11)",
-    "mis": "MIS (ROADMAP.md A.11)",
     "env_map": "environment maps (ROADMAP.md A.13)",
     "lens_radius": "thin-lens depth of field (ROADMAP.md A.12)",
     "focus_dist": "thin-lens depth of field (ROADMAP.md A.12)",
@@ -96,6 +99,8 @@ def main(argv=None) -> int:
         spp_chunk=args.spp_chunk,
         sampling=args.sampling,
         use_rr=args.rr,
+        use_nee=args.nee or args.mis,
+        use_mis=args.mis,
         traversal=args.traversal,
         camera=CameraConfig(),
     )

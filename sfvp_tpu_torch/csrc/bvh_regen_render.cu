@@ -4,7 +4,11 @@
 // (single-level kernel built in build_kernel, pallas_call at :2326), for
 // the slice the port runs: diffuse and mirror materials, uniform or cosine
 // sampling, Russian roulette with a roulette number drawn at every bounce
-// (megakernel_bvh.py:2173-2182). One thread owns one pixel and runs its spp
+// (megakernel_bvh.py:2173-2182), next-event estimation toward the area
+// lights with balance-heuristic MIS, whose shadow rays take the any-hit
+// walk of wide_bvh.cuh (the TPU kernel's second packet traversal per
+// bounce, shadow_occluded, megakernel_bvh.py:1447-1710). One thread owns
+// one pixel and runs its spp
 // samples back to back, K1's loop (regen_render.cu) with the brute-force
 // triangle loop replaced by the wide-BVH walk of wide_bvh.cuh; each
 // segment's radiance is added straight into the pixel total. The pixel of
@@ -23,9 +27,10 @@
 
 namespace sfvp {
 
-template <bool HAS_MIRRORS>
+template <bool HAS_MIRRORS, bool NEE>
 __global__ void __launch_bounds__(kBlock)
-bvh_regen_kernel(const Wide w, const Params p, float* __restrict__ colr,
+bvh_regen_kernel(const Wide w, const float* __restrict__ lights,
+                 const Params p, float* __restrict__ colr,
                  float* __restrict__ colg, float* __restrict__ colb,
                  int* __restrict__ segs_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -44,8 +49,14 @@ bvh_regen_kernel(const Wide w, const Params p, float* __restrict__ colr,
         add_sky(p, q, cr, cg, cb);
         break;
       }
-      const Surface f = wide_surface(w, h, q, cr, cg, cb);
-      if (!scatter<HAS_MIRRORS, true>(p, depth, f, q)) break;
+      const Surface f = wide_surface(w, h);
+      if (!shade_hit<HAS_MIRRORS, NEE, true>(
+              p, lights, depth, h.t, f, q, cr, cg, cb,
+              [&](float ox, float oy, float oz, float dx, float dy, float dz,
+                  float smax) {
+                return wide_any_hit(w, ox, oy, oz, dx, dy, dz, smax);
+              }))
+        break;
     }
   }
   colr[i] = cr;
@@ -56,19 +67,33 @@ bvh_regen_kernel(const Wide w, const Params p, float* __restrict__ colr,
 
 }  // namespace sfvp
 
-// Outputs are per pixel (p->npix each); returns cudaGetLastError() of the
-// launch on ``stream``.
-extern "C" int sfvp_bvh_regen_render(const sfvp::Wide* w,
+namespace {
+
+template <bool HAS_MIRRORS, bool NEE>
+int launch(const sfvp::Wide* w, const float* lights, const sfvp::Params* p,
+           float* colr, float* colg, float* colb, int* segs,
+           cudaStream_t st) {
+  const int blocks = (p->npix + sfvp::kBlock - 1) / sfvp::kBlock;
+  sfvp::bvh_regen_kernel<HAS_MIRRORS, NEE><<<blocks, sfvp::kBlock, 0, st>>>(
+      *w, lights, *p, colr, colg, colb, segs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// lights: the (16, p->num_lights) light table when p->use_nee, else
+// unused. Outputs are per pixel (p->npix each); returns cudaGetLastError()
+// of the launch on ``stream``.
+extern "C" int sfvp_bvh_regen_render(const sfvp::Wide* w, const float* lights,
                                      const sfvp::Params* p, int has_mirrors,
                                      float* colr, float* colg, float* colb,
                                      int* segs, void* stream) {
-  const int blocks = (p->npix + sfvp::kBlock - 1) / sfvp::kBlock;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (has_mirrors)
-    sfvp::bvh_regen_kernel<true><<<blocks, sfvp::kBlock, 0, st>>>(
-        *w, *p, colr, colg, colb, segs);
-  else
-    sfvp::bvh_regen_kernel<false><<<blocks, sfvp::kBlock, 0, st>>>(
-        *w, *p, colr, colg, colb, segs);
-  return static_cast<int>(cudaGetLastError());
+  if (p->use_nee)
+    return has_mirrors
+               ? launch<true, true>(w, lights, p, colr, colg, colb, segs, st)
+               : launch<false, true>(w, lights, p, colr, colg, colb, segs, st);
+  return has_mirrors
+             ? launch<true, false>(w, lights, p, colr, colg, colb, segs, st)
+             : launch<false, false>(w, lights, p, colr, colg, colb, segs, st);
 }

@@ -5,16 +5,22 @@ sfvp_tpu.dispatch.select_render_step (dispatch.py:236-364):
 
   - brute (``traversal="brute"``, or "auto" up to brute_force_max_tris
     triangles): K1 (kernels/megakernel_regen.py) by default, K2
-    (kernels/megakernel.py) with ``megakernel_regen=False``;
+    (kernels/megakernel.py) with ``megakernel_regen=False``; K2 has no
+    next-event estimation, so with ``cfg.use_nee`` the eager wavefront
+    integrator (integrate/wavefront.py, no kernel) takes its place, as
+    sfvp_tpu's jnp wavefront does (dispatch.py:245-256);
   - bvh (``traversal="bvh"``, or "auto" beyond): the wide BVH
     (accel/wide.py) traced by K5 (kernels/megakernel_bvh.py) by default,
     or with ``megakernel_regen=False`` by the wavefront loop
-    (integrate/wavefront.py) over the payload trace K3
+    (integrate/wavefront.py) over the payload trace K3 and, with
+    ``cfg.use_nee``, the any-hit trace K4 for its shadow rays
     (kernels/bvh_packet.py), with the per-bounce ray sort when
     ``cfg.sort_bounce_rays`` is on.
 
 The TPU's VMEM gates have no meaning on the GPU (ROADMAP.md A.19): every
-scene lives in device memory. The scene's device picks the implementation
+scene lives in device memory, and so does the light table, so any number
+of lights stays on the fused kernels (sfvp_tpu sends more than
+MAX_KERNEL_LIGHTS = 16384 to its wavefront loop, dispatch.py:149-159). The scene's device picks the implementation
 inside each kernel wrapper: a CUDA tensor runs the hand-written kernel, a
 CPU tensor its plain PyTorch twin. A config outside the ported slice
 raises NotImplementedError naming its ROADMAP.md item; nothing falls back
@@ -74,18 +80,25 @@ def select_render_step(cfg: RenderConfig, buffers,
             return make_bvh_regen_render_step(
                 cfg, buffers, dw, global_shape=global_shape)
         from .integrate.wavefront import make_render_step
-        from .kernels.bvh_packet import make_packet_trace
+        from .kernels.bvh_packet import make_packet_occlusion, make_packet_trace
 
         _dbg("wavefront(packet kernels)", tris=t, device=dev,
-             sort=cfg.sort_bounce_rays)
-        return make_render_step(cfg, buffers, global_shape=global_shape,
-                                trace_payload_fn=make_packet_trace(
-                                    dw, t_min=cfg.t_min))
+             sort=cfg.sort_bounce_rays, nee=cfg.use_nee)
+        return make_render_step(
+            cfg, buffers, global_shape=global_shape,
+            trace_payload_fn=make_packet_trace(dw, t_min=cfg.t_min),
+            occlusion_fn=(make_packet_occlusion(dw, t_min=cfg.t_min)
+                          if cfg.use_nee else None))
     if cfg.megakernel_regen:
         from .kernels.megakernel_regen import make_regen_render_step
 
         _dbg("megakernel_regen(brute)", tris=t, device=dev)
         return make_regen_render_step(cfg, buffers, global_shape=global_shape)
+    if cfg.use_nee:
+        from .integrate.wavefront import make_render_step
+
+        _dbg("wavefront(brute)", tris=t, device=dev)
+        return make_render_step(cfg, buffers, global_shape=global_shape)
     from .kernels.megakernel import make_wave_render_step
 
     _dbg("megakernel(chunked parity)", tris=t, device=dev)

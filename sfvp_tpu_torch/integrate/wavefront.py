@@ -8,7 +8,9 @@ trace -> shade, vectorised over the wave; terminated rays are masked.
 kernels/megakernel_bvh.py): it takes the colour to add into, so a twin can
 reproduce its kernel's summation order, and a trace hook, so the same
 loop runs over brute force (``brute_surface``) or the wide BVH's payload
-trace (``payload_surface``, K3 on a CUDA tensor).
+trace (``payload_surface``, K3 on a CUDA tensor), and a shadow hook, so
+next-event estimation tests its shadow rays by brute force
+(``brute_occluded``) or by the any-hit trace (K4 on a CUDA tensor).
 
 Large scenes run here through ``make_render_step(...,
 trace_payload_fn=...)``, the payload path of sfvp_tpu's wavefront loop,
@@ -25,8 +27,10 @@ Parity-mode semantics preserved exactly (ref shaders/raygen.rgen:41-91):
   - progressive accumulation new = (color + old*frame)/(frame+1), in f32
 
 The subset is diffuse and mirror materials, uniform and cosine sampling,
-and Russian roulette, over brute force or the wide BVH. Everything else
-raises NotImplementedError in ``require_slice`` and never falls back.
+Russian roulette, and next-event estimation toward area lights with
+balance-heuristic MIS (integrate/lights.py), over brute force or the wide
+BVH. Everything else raises NotImplementedError in ``require_slice`` and
+never falls back.
 """
 
 from __future__ import annotations
@@ -48,10 +52,15 @@ from ..sampling import (
 )
 from ..utils import vec
 from ..utils.vec import f32
+from .lights import LightTable, build_light_table_from_buffers, sample_light
 
 # brdf * cos / pdf of uniform sampling: Kd/pi * cos * 2pi, the float32
 # product the JAX package forms as (INV_PI * TWO_PI)
 UNIFORM_SCALE = float(np.float32(INV_PI) * np.float32(TWO_PI))
+# the solid-angle pdf of a uniform hemisphere sample, 1/TWO_PI in float32
+UNIFORM_PDF = f32(1.0 / TWO_PI)
+# a shadow ray stops this fraction short of its light sample
+SHADOW_SCALE = f32(1.0 - 1e-3)
 
 
 class RenderState(NamedTuple):
@@ -73,8 +82,6 @@ def require_slice(cfg: RenderConfig, scene) -> None:
     """Raise NotImplementedError, naming the ROADMAP.md item that brings it,
     for any feature this package does not run yet."""
     todo = []
-    if cfg.use_nee or cfg.use_mis:
-        todo.append("next-event estimation / MIS (ROADMAP.md A.11)")
     if cfg.camera.lens_radius > 0.0:
         todo.append("thin-lens depth of field (ROADMAP.md A.12)")
     mt = scene.mtype[: scene.num_tris].cpu().numpy()
@@ -120,7 +127,7 @@ def shade_from_payload(pay):
     two correctly rounded ops where it calls rsqrt. The wide layout keeps
     Ks in the albedo lanes of mirrors and packs mtype + roughness in one
     lane (accel/wide.py). Returns (miss, position, normal, diffuse,
-    emission, specular, mtype)."""
+    emission, specular, mtype, t)."""
     miss = torch.isinf(pay.t)
     w = 1.0 - pay.u - pay.v
     position = vec.add(
@@ -131,19 +138,32 @@ def shade_from_payload(pay):
     inv_len = vec.inv_sqrt(torch.clamp_min(vec.dot(nrm, nrm), 1e-30))
     normal = vec.scale(nrm, -inv_len)
     return (miss, position, normal, pay.albedo, pay.emission, pay.albedo,
-            torch.floor(pay.mtype))
+            torch.floor(pay.mtype), pay.t)
 
 
 def brute_surface(cfg: RenderConfig, scene) -> Callable:
     """Trace hook of ``trace_wave`` over every triangle of ``scene``:
     ``surface(o, d, active) -> (miss, position, normal, diffuse, emission,
-    specular, mtype)``."""
+    specular, mtype, t)``, t the hit distance."""
 
     def surface(o, d, active):
         hit = trace_brute(o, d, scene, cfg.t_min, cfg.t_max, active=active)
-        return (hit.prim < 0, *shade_inputs(scene, hit))
+        return (hit.prim < 0, *shade_inputs(scene, hit), hit.t)
 
     return surface
+
+
+def brute_occluded(cfg: RenderConfig, scene) -> Callable:
+    """Shadow hook of ``trace_wave`` over every triangle of ``scene``:
+    ``occluded(o, d, t_max, active) -> (N,) bool``, whether a triangle
+    lies in (t_min, t_max) along the ray, as sfvp_tpu's trace_fn branch
+    (``trace_brute(...).prim >= 0``, wavefront.py:304-308)."""
+
+    def occluded(o, d, t_max, active):
+        return trace_brute(o, d, scene, cfg.t_min, t_max,
+                           active=active).prim >= 0
+
+    return occluded
 
 
 def payload_surface(cfg: RenderConfig, trace_payload_fn) -> Callable:
@@ -204,9 +224,90 @@ def make_sort_key(cfg: RenderConfig, scene) -> Optional[Callable]:
     return key
 
 
+def emission_weight(use_mis: bool, count_emit, pdf_prev, miss, d, normal,
+                    t_hit, emission, inv_area: float):
+    """Weight of the emission a path segment adds under NEE
+    (sfvp_tpu/integrate/wavefront.py:455-472; the fused kernels compute the
+    same, megakernel_regen.py:603-628): 1 on camera rays, after specular
+    bounces and on misses; otherwise 0, or under MIS the balance-heuristic
+    weight p_bsdf / (p_bsdf + p_nee) of an emissive hit, with p_nee the
+    area pdf 1/total_area turned into solid angle by t^2 / |cos|."""
+    full = count_emit | miss
+    if not use_mis:
+        return full.to(torch.float32)
+    cos_l_hit = torch.abs(vec.dot(d, normal))
+    t_safe = torch.where(miss, 0.0, t_hit)
+    p_nee_hit = (t_safe * t_safe) * inv_area / torch.clamp_min(cos_l_hit,
+                                                               1e-6)
+    w_bsdf = pdf_prev / torch.clamp_min(pdf_prev + p_nee_hit, 1e-30)
+    is_emissive = (vec.maxc(emission) > 0) & torch.logical_not(miss)
+    return torch.where(full, 1.0, torch.where(is_emissive, w_bsdf, 0.0))
+
+
+def nee_direct(lights: LightTable, r_sel, rl1, rl2, position, normal,
+               diffuse, weight, shadow_q, occluded, use_mis: bool,
+               uniform: bool, fused: bool):
+    """The direct light one light sample brings to a hit, times the path
+    weight: a (3,) tuple of (N,), zero where ``shadow_q`` is off, the light
+    is behind the surface or the shadow ray is blocked.
+
+    Two float orders of the same estimate: the wavefront integrator's
+    (sfvp_tpu/integrate/wavefront.py:476-513: the shadow ray to
+    sqrt(dist2) * (1 - 1e-3), (brdf * Le) * cos_s * cos_l / (dist2 *
+    pdf_area), then the MIS weight) and, with ``fused``, that of the fused
+    kernels K1 and K5 (megakernel_regen.py:702-797, megakernel_bvh.py
+    :1874-1945: the shadow ray to (1 / (1 / sqrt(dist2))) * (1 - 1e-3),
+    w * brdf * Le * (cos_s * cos_l / dist2 * total_area * w_mis)), with
+    their light pick (lights.light_index)."""
+    q, nl, le, pdf_area = sample_light(lights, r_sel, rl1, rl2, fused)
+    to_l = vec.sub(q, position)
+    dist2 = torch.clamp_min(vec.dot(to_l, to_l), 1e-12)
+    if fused:
+        inv_dist = vec.inv_sqrt(dist2)
+        wl = vec.scale(to_l, inv_dist)
+        smax = (1.0 / inv_dist) * SHADOW_SCALE
+    else:
+        dist = torch.sqrt(dist2)
+        wl = vec.scale(to_l, 1.0 / dist)
+        smax = dist * SHADOW_SCALE
+    cos_s = vec.dot(wl, normal)
+    brdf_l = vec.scale(diffuse, INV_PI)
+    cos_l = torch.abs(vec.dot(wl, nl))  # double-sided light
+    shadow_q = shadow_q & (cos_s > 0)
+    visible = shadow_q & torch.logical_not(occluded(position, wl, smax,
+                                                    shadow_q))
+    area = f32(lights.total_area)
+    if use_mis:
+        # balance heuristic in solid-angle measure
+        if fused:
+            p_nee_sa = dist2 / (area * torch.clamp_min(cos_l, 1e-6))
+        else:
+            p_nee_sa = dist2 * pdf_area / torch.clamp_min(cos_l, 1e-6)
+        if uniform:
+            p_bsdf_l = torch.full_like(cos_s, UNIFORM_PDF)
+        else:
+            p_bsdf_l = torch.clamp_min(cos_s, 0.0) * INV_PI
+        w_nee = p_nee_sa / torch.clamp_min(p_nee_sa + p_bsdf_l, 1e-30)
+    if fused:
+        g_pdf = cos_s * cos_l / dist2 * area
+        if use_mis:
+            g_pdf = g_pdf * w_nee
+        direct = vec.scale(vec.mul(vec.mul(weight, brdf_l), le), g_pdf)
+    else:
+        g_over_pdf = cos_s * cos_l / (dist2 * pdf_area)
+        direct = vec.scale(vec.mul(brdf_l, le), g_over_pdf)
+        if use_mis:
+            direct = vec.scale(direct, w_nee)
+        direct = vec.mul(weight, direct)
+    return vec.where(visible, direct, vec.splat((0.0, 0.0, 0.0),
+                                                like=cos_s))
+
+
 def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
                global_shape, color=None, has_mirrors: bool = False,
-               rr_every_depth: bool = True, surface=None, sort_key=None):
+               rr_every_depth: bool = True, surface=None, sort_key=None,
+               lights: Optional[LightTable] = None, occluded=None,
+               fused_nee: bool = False):
     """Trace one wave of camera paths: ray i is sample ``sample_ids[i]`` of
     global pixel (px[i], py[i]). Each segment's radiance is added into
     ``color`` (zeros when None) in depth order.
@@ -222,12 +323,25 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
     state and one of the integer state, and scatter the results back to
     wave order at the end.
 
+    ``lights`` (integrate/lights.py): next-event estimation when
+    ``cfg.use_nee``, with MIS when ``cfg.use_mis`` too; without lights
+    neither engages, so a scene with no emissive triangle renders as
+    without them. At every hit the light sample's three numbers are drawn
+    before the bounce's. ``occluded(o, d, t_max, active) -> (N,) bool``:
+    the shadow-ray hook (``brute_occluded`` over ``scene`` when None).
+    ``fused_nee``: the NEE term in the fused kernels' float order
+    (``nee_direct``), as the twins of K1 and K5 take it.
+
     Returns (color tuple of (M,) f32, segments traced per ray (M,) int32).
     """
     gh, gw = global_shape
     uniform = cfg.sampling == "uniform"
+    use_nee = cfg.use_nee and lights is not None
+    use_mis = cfg.use_mis and use_nee
     if surface is None:
         surface = brute_surface(cfg, scene)
+    if use_nee and occluded is None:
+        occluded = brute_occluded(cfg, scene)
     seed = rng.sample_seed(px, py, sample_ids, frame, cfg.spp_per_step)
     r1, seed = rng.rand(seed)
     r2, seed = rng.rand(seed)
@@ -239,6 +353,10 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
     dev = o[0].device
     done = torch.zeros(o[0].shape, dtype=torch.bool, device=dev)
     segs = torch.zeros(o[0].shape, dtype=torch.int32, device=dev)
+    if use_nee:
+        # emission counts in full on camera rays and after mirrors
+        count_emit = torch.ones(o[0].shape, dtype=torch.bool, device=dev)
+        pdf_prev = torch.zeros(o[0].shape, device=dev)
     if sort_key is not None:
         slot = torch.arange(o[0].shape[0], device=dev)
         prev_mtype = torch.zeros(o[0].shape, device=dev)
@@ -247,18 +365,39 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
         if sort_key is not None and depth > 0:
             perm = torch.sort(sort_key(o, d, done, prev_mtype),
                               stable=True).indices
-            fl = torch.stack([*o, *d, *weight, *color, prev_mtype])[:, perm]
-            it = torch.stack([seed, done.long(), segs.long(), slot])[:, perm]
+            fl = [*o, *d, *weight, *color, prev_mtype]
+            it = [seed, done.long(), segs.long(), slot]
+            if use_nee:
+                fl.append(pdf_prev)
+                it.append(count_emit.long())
+            fl = torch.stack(fl)[:, perm]
+            it = torch.stack(it)[:, perm]
             o, d, weight, color = (tuple(fl[i:i + 3]) for i in (0, 3, 6, 9))
             prev_mtype = fl[12]
             seed, done, segs, slot = (it[0], it[1].bool(), it[2].int(),
                                       it[3])
+            if use_nee:
+                pdf_prev, count_emit = fl[13], it[4].bool()
         active = torch.logical_not(done)
-        miss, position, normal, diffuse, emission, spec, mtype = surface(
-            o, d, active)
+        miss, position, normal, diffuse, emission, spec, mtype, t_hit = (
+            surface(o, d, active))
         emission = vec.where(miss, sky, emission)
         emit_w = active.to(torch.float32)
+        if use_nee:
+            emit_w = emission_weight(use_mis, count_emit, pdf_prev, miss, d,
+                                     normal, t_hit, emission,
+                                     lights.inv_area) * emit_w
         color = vec.add(color, vec.scale(vec.mul(weight, emission), emit_w))
+
+        is_mirror = (mtype == 1) & torch.logical_not(miss)
+        if use_nee:
+            r_sel, seed = rng.rand(seed)
+            rl1, seed = rng.rand(seed)
+            rl2, seed = rng.rand(seed)
+            shadow_q = active & torch.logical_not(miss | is_mirror)
+            color = vec.add(color, nee_direct(
+                lights, r_sel, rl1, rl2, position, normal, diffuse, weight,
+                shadow_q, occluded, use_mis, uniform, fused_nee))
 
         r1, seed = rng.rand(seed)
         r2, seed = rng.rand(seed)
@@ -269,10 +408,17 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
         else:
             new_dir = sample_direction_cosine_soa(r1, r2, normal)
             scale = diffuse  # pdf = cos/pi cancels the cosine
+        if use_mis:
+            # the pdf of the sampled direction, taken before the mirror
+            # override (mirror paths never read it: count_emit is set)
+            if uniform:
+                new_pdf = torch.full_like(pdf_prev, UNIFORM_PDF)
+            else:
+                new_pdf = torch.clamp_min(vec.dot(new_dir, normal),
+                                          0.0) * INV_PI
         if has_mirrors:
             # perfect mirror: reflect about the normal flipped toward the
             # incoming ray (geometry is double-sided)
-            is_mirror = (mtype == 1) & torch.logical_not(miss)
             n_dot_d = vec.dot(d, normal)
             n_f = vec.where(n_dot_d > 0, vec.scale(normal, -1.0), normal)
             refl = vec.sub(d, vec.scale(n_f, 2.0 * vec.dot(d, n_f)))
@@ -293,6 +439,10 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
         weight = vec.where(cont, vec.mul(weight, scale), weight)
         done = torch.logical_not(cont)
         segs += active.to(torch.int32)
+        if use_nee:
+            count_emit = is_mirror
+        if use_mis:
+            pdf_prev = torch.where(cont, new_pdf, pdf_prev)
         if sort_key is not None:
             prev_mtype = torch.where(cont, mtype.to(torch.float32), 0.0)
     if sort_key is not None:
@@ -353,7 +503,8 @@ def sum_chunks(cfg: RenderConfig, npix: int, wave, device):
 
 def make_render_step(cfg: RenderConfig, scene,
                      global_shape: Optional[tuple] = None,
-                     trace_payload_fn: Optional[Callable] = None):
+                     trace_payload_fn: Optional[Callable] = None,
+                     occlusion_fn: Optional[Callable] = None):
     """Build ``render_step(state, row0=0) -> state`` for a (local) image of
     the shape of ``state.accum``, on the device of ``scene``.
 
@@ -366,6 +517,12 @@ def make_render_step(cfg: RenderConfig, scene,
     device) instead of brute force; then, when ``cfg.sort_bounce_rays`` is
     on, every bounce after the first sorts the wave by ``make_sort_key``,
     which never changes the image.
+
+    With ``cfg.use_nee`` the scene's area lights are sampled at every hit
+    (integrate/lights.py, the table built once here) and their shadow rays
+    traced by ``occlusion_fn(o, d, t_max, active) -> (N,) bool``
+    (kernels/bvh_packet.make_packet_occlusion, K4 on a CUDA device), or by
+    brute force without it.
     """
     require_slice(cfg, scene)
     gshape = global_shape if global_shape is not None else (cfg.height,
@@ -373,6 +530,7 @@ def make_render_step(cfg: RenderConfig, scene,
     chunk = cfg.spp_chunk
     mirrors = has_mirror_faces(scene)
     dev = scene.device
+    lights = build_light_table_from_buffers(scene) if cfg.use_nee else None
     if trace_payload_fn is None:
         surface, sort_key = brute_surface(cfg, scene), None
     else:
@@ -391,7 +549,8 @@ def make_render_step(cfg: RenderConfig, scene,
                      + torch.arange(chunk, device=dev)).repeat_interleave(n)
             color, seg = trace_wave(cfg, scene, px, py, s_ids, state.frame,
                                     gshape, has_mirrors=mirrors,
-                                    surface=surface, sort_key=sort_key)
+                                    surface=surface, sort_key=sort_key,
+                                    lights=lights, occluded=occlusion_fn)
             return (*color, seg)
 
         color_sum, segs = sum_chunks(cfg, n, wave, dev)

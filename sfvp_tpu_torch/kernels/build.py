@@ -28,8 +28,9 @@ from pathlib import Path
 import torch
 
 from ..config import RenderConfig
-from ..integrate.wavefront import UNIFORM_SCALE
-from ..sampling import TWO_PI
+from ..integrate.lights import N_LIGHT_ROWS
+from ..integrate.wavefront import UNIFORM_PDF, UNIFORM_SCALE
+from ..sampling import INV_PI, TWO_PI
 from ..utils.vec import f32
 from .intersect import _DET_EPS
 
@@ -48,7 +49,7 @@ MAX_KERNEL_TRIS = 480
 MAX_WIDE_STACK = 256
 # child refs are stored as float32 in the node rows: exact below 2**24
 MAX_WIDE_ROWS = 1 << 24
-# K3's ray count is a C int (its plane offsets are size_t)
+# K3's and K4's ray count is a C int (their plane offsets are size_t)
 MAX_WAVE_RAYS = 1 << 31
 
 
@@ -62,7 +63,11 @@ class Params(ctypes.Structure):
             "t_min", "t_max", "inv2w", "inv2h", "two_pi", "uniform_scale",
             "det_eps")] + [
         (name, ctypes.c_float * 3) for name in (
-            "cam_c", "cam_r", "cam_u", "cam_o", "sky")]
+            "cam_c", "cam_r", "cam_u", "cam_o", "sky")] + [
+        (name, ctypes.c_int) for name in (
+            "use_nee", "use_mis", "num_lights")] + [
+        (name, ctypes.c_float) for name in (
+            "total_area", "inv_area", "inv_pi", "uniform_pdf")]
 
 
 class WideParams(ctypes.Structure):
@@ -75,12 +80,16 @@ class WideParams(ctypes.Structure):
 
 
 def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
-                npix: int, num_tris: int, tp: int,
-                chunk_idx: int = 0) -> Params:
-    """Launch parameters; every float is the float32 the twins use."""
+                npix: int, num_tris: int, tp: int, chunk_idx: int = 0,
+                lights=None) -> Params:
+    """Launch parameters; every float is the float32 the twins use.
+    ``lights`` (integrate/lights.py LightTable): next-event estimation
+    when ``cfg.use_nee``, MIS when ``cfg.use_mis`` too; neither without
+    lights."""
     gh, gw = global_shape
     vec3 = ctypes.c_float * 3
     cam = cfg.camera
+    use_nee = cfg.use_nee and lights is not None
     return Params(
         frame=frame, row0=row0, gw=gw, gh=gh, npix=npix,
         spp=cfg.spp_per_step, max_depth=cfg.max_depth,
@@ -93,6 +102,11 @@ def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
         cam_c=vec3(*map(f32, cam.center)), cam_r=vec3(*map(f32, cam.right)),
         cam_u=vec3(*map(f32, cam.up)), cam_o=vec3(*map(f32, cam.origin)),
         sky=vec3(*map(f32, cfg.sky_emission)),
+        use_nee=int(use_nee), use_mis=int(use_nee and cfg.use_mis),
+        num_lights=lights.num if use_nee else 0,
+        total_area=f32(lights.total_area) if use_nee else 1.0,
+        inv_area=lights.inv_area if use_nee else 1.0, inv_pi=INV_PI,
+        uniform_pdf=UNIFORM_PDF,
     )
 
 
@@ -170,58 +184,77 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call in this process)."""
     lib = ctypes.CDLL(str(build()))
     outs = [ctypes.c_void_p] * 5  # colr, colg, colb, segs, stream
-    for fn in (lib.sfvp_regen_render, lib.sfvp_wave_render):
-        fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(Params), ctypes.c_int,
-                       *outs]
-        fn.restype = ctypes.c_int
+    lib.sfvp_wave_render.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(Params), ctypes.c_int, *outs]
+    # K1 and K5 take the light table after the scene
+    lib.sfvp_regen_render.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(Params),
+        ctypes.c_int, *outs]
     lib.sfvp_bvh_regen_render.argtypes = [
-        ctypes.POINTER(WideParams), ctypes.POINTER(Params), ctypes.c_int,
-        *outs]
-    lib.sfvp_bvh_regen_render.restype = ctypes.c_int
-    lib.sfvp_bvh_trace.argtypes = [
-        ctypes.POINTER(WideParams), ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]
-    lib.sfvp_bvh_trace.restype = ctypes.c_int
+        ctypes.POINTER(WideParams), ctypes.c_void_p, ctypes.POINTER(Params),
+        ctypes.c_int, *outs]
+    for fn in (lib.sfvp_bvh_trace, lib.sfvp_bvh_occlusion):
+        fn.argtypes = [ctypes.POINTER(WideParams), ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    for fn in (lib.sfvp_wave_render, lib.sfvp_regen_render,
+               lib.sfvp_bvh_regen_render, lib.sfvp_bvh_trace,
+               lib.sfvp_bvh_occlusion):
+        fn.restype = ctypes.c_int
     return lib
 
 
 def launch(fn_name: str, scene, params: Params, has_mirrors: bool,
-           n_out: int):
+           n_out: int, lights=None):
     """Launch one render kernel of the library on the current stream of
     the scene's device; ``scene`` is the brute-force table tensor (K1, K2)
-    or the WideParams of a device BVH (K5). Allocates and returns (colr,
-    colg, colb, segs)."""
+    or the WideParams of a device BVH (K5). K1 and K5 take ``lights``, the
+    (16, L) light table (``check_lights``) when ``params.use_nee``.
+    Allocates and returns (colr, colg, colb, segs)."""
     if isinstance(scene, WideParams):
         device, scene_arg = scene.device, ctypes.byref(scene)
     else:
         device, scene_arg = scene.device, scene.data_ptr()
+    args = [scene_arg]
+    if fn_name != "sfvp_wave_render":
+        args.append(lights.data_ptr() if params.use_nee else None)
     with torch.cuda.device(device):
         fn = getattr(library(), fn_name)
         outs = [torch.empty(n_out, dtype=torch.float32, device=device)
                 for _ in range(3)]
         segs = torch.empty(n_out, dtype=torch.int32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(scene_arg, ctypes.byref(params), int(has_mirrors),
+        err = fn(*args, ctypes.byref(params), int(has_mirrors),
                  *(o.data_ptr() for o in outs), segs.data_ptr(), stream)
     check_launch(fn_name, err)
     return (*outs, segs)
 
 
-def launch_bvh_trace(wp: "WideParams", rays):
-    """K3 on the current stream of the rays' device: (7, N) ray planes in,
-    (19, N) payload planes out. N goes to the kernel as a C int, so a wave
-    holds fewer than 2**31 rays."""
+def _launch_wave(fn_name: str, wp: "WideParams", rays, out):
+    """Launch a per-ray BVH kernel (K3, K4) over the (7, N) ray planes
+    into ``out`` on the current stream of the rays' device. N goes to the
+    kernel as a C int, so a wave holds fewer than 2**31 rays."""
     n = rays.shape[1]
     if n >= MAX_WAVE_RAYS:
-        raise ValueError(f"a K3 wave holds fewer than {MAX_WAVE_RAYS} rays "
+        raise ValueError(f"a wave holds fewer than {MAX_WAVE_RAYS} rays "
                          f"(a C int), got {n}")
     with torch.cuda.device(rays.device):
-        out = torch.empty((19, n), dtype=torch.float32, device=rays.device)
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        err = library().sfvp_bvh_trace(ctypes.byref(wp), rays.data_ptr(), n,
-                                       out.data_ptr(), stream)
-    check_launch("sfvp_bvh_trace", err)
+        err = getattr(library(), fn_name)(
+            ctypes.byref(wp), rays.data_ptr(), n, out.data_ptr(), stream)
+    check_launch(fn_name, err)
     return out
+
+
+def launch_bvh_trace(wp: "WideParams", rays):
+    """K3: (7, N) ray planes in, (19, N) payload planes out."""
+    return _launch_wave("sfvp_bvh_trace", wp, rays, torch.empty(
+        (19, rays.shape[1]), dtype=torch.float32, device=rays.device))
+
+
+def launch_bvh_occlusion(wp: "WideParams", rays):
+    """K4: (7, N) ray planes in, (N,) bool out."""
+    return _launch_wave("sfvp_bvh_occlusion", wp, rays, torch.empty(
+        rays.shape[1], dtype=torch.bool, device=rays.device))
 
 
 def check_launch(fn_name: str, err: int) -> None:
@@ -257,6 +290,20 @@ def wide_params(dw, t_min: float) -> WideParams:
                     det_eps=_DET_EPS)
     wp.device = dw.nodes.device
     return wp
+
+
+def check_lights(rows, device) -> None:
+    """What K1 and K5 take as the light table: a contiguous float32 (16,
+    L) tensor (integrate/lights.py LightTable.rows) on the scene's CUDA
+    device."""
+    if rows.device != torch.device(device):
+        raise ValueError(f"light table on {rows.device}, scene on {device}")
+    if (rows.dtype != torch.float32 or rows.dim() != 2
+            or rows.shape[0] != N_LIGHT_ROWS or rows.shape[1] < 1
+            or not rows.is_contiguous()):
+        raise ValueError(f"light table must be a contiguous float32 "
+                         f"({N_LIGHT_ROWS}, L) tensor, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
 
 
 def check_table(table, num_tris: int) -> None:

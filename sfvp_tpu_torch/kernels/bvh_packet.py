@@ -1,5 +1,6 @@
 """K3, the closest-hit trace of the 8-wide BVH with its shading payload:
-the wavefront loop's per-bounce trace of large scenes.
+the wavefront loop's per-bounce trace of large scenes; and K4, the any-hit
+trace of its shadow rays under next-event estimation.
 
 ``packet_trace`` traces one (N,) wave: on a CUDA tensor through the
 hand-written kernel csrc/bvh_trace.cu, on a CPU tensor through its plain
@@ -13,8 +14,13 @@ Counterpart of sfvp_tpu/kernels/bvh_packet.py (``Payload``,
 ``make_packet_trace``). There a 1024-ray packet walks the tree on one
 shared stack and enters a subtree when any of its rays hits the box; here
 each ray walks alone. The closest hit is the same up to exact ties in t.
-The occlusion kernel K4 comes with next-event estimation (ROADMAP.md
-A.11).
+
+``packet_occlusion`` answers, for one (N,) wave of shadow rays, whether
+any triangle lies in (t_min, t_max) along each: on a CUDA tensor through
+csrc/bvh_occlusion.cu, on a CPU tensor through ``packet_occlusion_plain``.
+Both push every child box the ray enters and stop at the first hit; the
+answer does not depend on the order, so kernel and twin agree on every
+ray. Counterpart of sfvp_tpu's make_packet_occlusion (bvh_packet.py:433).
 """
 
 from __future__ import annotations
@@ -127,9 +133,10 @@ def _leaf_tests(tris, rows, ray, bt):
             torch.gather(v, 1, slot).squeeze(1))
 
 
-def _node_children(nodes, node_idx, ray, bt, t_min):
+def _node_children(nodes, node_idx, ray, bt, t_min, ordered=True):
     """Slab tests of rays against the 8 children of their nodes; returns
-    the (M, 8) child codes to push, far to near (0 = no push)."""
+    the (M, 8) child codes to push, far to near (0 = no push); in slot
+    order when not ``ordered`` (an any-hit walk)."""
     ox, oy, oz = (c[:, None] for c in ray[:3])
     ivx, ivy, ivz = (c[:, None] for c in ray.inv)
     f = nodes[node_idx, :64].view(-1, 8, 8)  # (M, field, child)
@@ -153,6 +160,8 @@ def _node_children(nodes, node_idx, ray, bt, t_min):
     push = (code != 0) & (tnear <= tfar)
     key = torch.where(push, tnear, float("-inf"))
     code = torch.where(push, code, 0)
+    if not ordered:
+        return code
     for layer in NET_LAYERS:
         a = torch.tensor([c[0] for c in layer], device=key.device)
         b = torch.tensor([c[1] for c in layer], device=key.device)
@@ -176,6 +185,35 @@ class _Rays(tuple):
         return r
 
 
+def _push(stack, sp, ni, child):
+    """Push each ray's (8,) child codes (0 = none) in slot order."""
+    pushed = child != 0
+    pos = sp[ni][:, None] + torch.cumsum(pushed, dim=1) - 1
+    rows = ni[:, None].expand(-1, 8)
+    stack[rows[pushed], pos[pushed]] = child[pushed]
+    sp[ni] += pushed.sum(dim=1)
+
+
+def _count(counts, ni, li):
+    if counts is not None:
+        counts["node_pops"] = counts.get("node_pops", 0) + ni.numel()
+        counts["leaf_pops"] = counts.get("leaf_pops", 0) + li.numel()
+
+
+def _walk_setup(dw: DeviceWide, t_min: float, rays: torch.Tensor):
+    """The ray view, an (N, max_stack) stack holding the root and each
+    ray's stack pointer (0 for tmax <= t_min: no walk)."""
+    n = rays.shape[1]
+    ray = _Rays(rays)
+    ray.inv = tuple(safe_inv(c) for c in rays[3:6])
+    ray.t_min = t_min
+    stack = torch.zeros((n, dw.max_stack), dtype=torch.int64,
+                        device=rays.device)
+    stack[:, 0] = 1  # the root, internal node 0
+    sp = (rays[6] > t_min).to(torch.int64)
+    return ray, stack, sp
+
+
 def packet_trace_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
                        counts: Optional[dict] = None) -> torch.Tensor:
     """Plain PyTorch twin of the K3 kernel: same arguments, same results.
@@ -192,12 +230,7 @@ def packet_trace_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
     t_min = f32(t_min)
     dev = rays.device
     n = rays.shape[1]
-    ray = _Rays(rays)
-    ray.inv = tuple(safe_inv(c) for c in rays[3:6])
-    ray.t_min = t_min
-    stack = torch.zeros((n, dw.max_stack), dtype=torch.int64, device=dev)
-    stack[:, 0] = 1  # the root, internal node 0
-    sp = (rays[6] > t_min).to(torch.int64)  # tmax <= t_min: no walk, a miss
+    ray, stack, sp = _walk_setup(dw, t_min, rays)
     bt = torch.full((n,), float("inf"), device=dev)
     bu = torch.zeros(n, device=dev)
     bv = torch.zeros(n, device=dev)
@@ -221,16 +254,9 @@ def packet_trace_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
             bslot[li] = torch.where(better, slot, bslot[li])
         ni = idx[~leaf]
         if ni.numel():
-            child = _node_children(dw.nodes, code[~leaf] - 1, ray.take(ni),
-                                   bt[ni], t_min)
-            pushed = child != 0
-            pos = sp[ni][:, None] + torch.cumsum(pushed, dim=1) - 1
-            rows = ni[:, None].expand(-1, 8)
-            stack[rows[pushed], pos[pushed]] = child[pushed]
-            sp[ni] += pushed.sum(dim=1)
-        if counts is not None:
-            counts["node_pops"] = counts.get("node_pops", 0) + ni.numel()
-            counts["leaf_pops"] = counts.get("leaf_pops", 0) + li.numel()
+            _push(stack, sp, ni, _node_children(
+                dw.nodes, code[~leaf] - 1, ray.take(ni), bt[ni], t_min))
+        _count(counts, ni, li)
     out = torch.zeros((N_PAYLOAD, n), dtype=torch.float32, device=dev)
     out[0], out[1], out[2] = bt, bu, bv
     hit = torch.nonzero(brow >= 0).squeeze(1)
@@ -239,16 +265,20 @@ def packet_trace_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
     return out
 
 
+def _check_rays(rays: torch.Tensor) -> None:
+    if (rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7
+            or not rays.is_contiguous()):
+        raise ValueError(f"rays must be contiguous float32 (7, N) planes, "
+                         f"got {rays.dtype} {tuple(rays.shape)}")
+
+
 def packet_trace(dw: DeviceWide, t_min: float, rays: torch.Tensor):
     """K3 on the rays' device: the CUDA kernel for a CUDA tensor (or an
     error), the plain twin for a CPU tensor. ``packet_trace.launches``
     counts kernel launches."""
     if rays.device.type == "cpu":
         return packet_trace_plain(dw, t_min, rays)
-    if (rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 7
-            or not rays.is_contiguous()):
-        raise ValueError(f"rays must be contiguous float32 (7, N) planes, "
-                         f"got {rays.dtype} {tuple(rays.shape)}")
+    _check_rays(rays)
     wp = build.wide_params(dw, t_min)
     if rays.device != wp.device:
         raise ValueError(f"rays on {rays.device}, BVH on {wp.device}")
@@ -283,9 +313,69 @@ def make_packet_trace(dw: DeviceWide, t_min: float):
     return trace
 
 
-def make_packet_occlusion(wide, t_min: float):
-    """The any-hit shadow-ray kernel K4 serves next-event estimation."""
-    raise NotImplementedError(
-        "the occlusion trace K4 (sfvp_tpu/kernels/bvh_packet.py "
-        "make_packet_occlusion) is not ported to sfvp_tpu_torch yet: it "
-        "comes with next-event estimation (ROADMAP.md A.11)")
+def packet_occlusion_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
+                           counts: Optional[dict] = None) -> torch.Tensor:
+    """Plain PyTorch twin of the K4 kernel: same arguments, same results.
+
+    rays: (7, N) float32 planes ox oy oz dx dy dz tmax (tmax = -inf for an
+    inactive ray). Returns (N,) bool: a triangle lies in (t_min, tmax).
+
+    The walk of ``packet_trace_plain`` with a fixed window [t_min, tmax]:
+    every child box the ray enters is pushed in slot order, and a ray
+    retires on its first leaf with a hit. ``counts`` gains the pops."""
+    t_min = f32(t_min)
+    n = rays.shape[1]
+    ray, stack, sp = _walk_setup(dw, t_min, rays)
+    inf = torch.full((n,), float("inf"), device=rays.device)
+    occ = torch.zeros(n, dtype=torch.bool, device=rays.device)
+    while True:
+        idx = torch.nonzero(sp > 0).squeeze(1)
+        if idx.numel() == 0:
+            break
+        sp[idx] -= 1
+        code = stack[idx, sp[idx]]
+        leaf = code < 0
+        li, lrow = idx[leaf], -code[leaf] - 1
+        if li.numel():
+            t = _leaf_tests(dw.tris, lrow, ray.take(li), inf[li])[1]
+            hit = li[torch.isfinite(t)]
+            occ[hit] = True
+            sp[hit] = 0
+        ni = idx[~leaf]
+        if ni.numel():
+            _push(stack, sp, ni, _node_children(
+                dw.nodes, code[~leaf] - 1, ray.take(ni), inf[ni], t_min,
+                ordered=False))
+        _count(counts, ni, li)
+    return occ
+
+
+def packet_occlusion(dw: DeviceWide, t_min: float, rays: torch.Tensor):
+    """K4 on the rays' device: the CUDA kernel for a CUDA tensor (or an
+    error), the plain twin for a CPU tensor. ``packet_occlusion.launches``
+    counts kernel launches."""
+    if rays.device.type == "cpu":
+        return packet_occlusion_plain(dw, t_min, rays)
+    _check_rays(rays)
+    wp = build.wide_params(dw, t_min)
+    if rays.device != wp.device:
+        raise ValueError(f"rays on {rays.device}, BVH on {wp.device}")
+    out = build.launch_bvh_occlusion(wp, rays)
+    packet_occlusion.launches += 1
+    return out
+
+
+packet_occlusion.launches = 0
+
+
+def make_packet_occlusion(dw: DeviceWide, t_min: float):
+    """Build ``occluded(o, d, t_max, active=None) -> (N,) bool`` over (N,)
+    SoA shadow rays on the device of ``dw``, as sfvp_tpu's
+    make_packet_occlusion: whether a triangle lies in (t_min, t_max) along
+    each ray, and False for inactive rays."""
+
+    def occluded(o, d, t_max, active=None):
+        occ = packet_occlusion(dw, t_min, ray_planes(o, d, t_max, active))
+        return occ if active is None else occ & active
+
+    return occluded

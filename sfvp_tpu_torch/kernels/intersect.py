@@ -49,20 +49,17 @@ def moller_trumbore_soa(o, d, p0, p1, p2, t_min, t_max):
         & (v >= 0.0)
         & (u + v <= 1.0)
         & (t > f32(t_min))
-        & (t < f32(t_max))
+        & (t < (t_max if torch.is_tensor(t_max) else f32(t_max)))
     )
     return valid, t, u, v
 
 
-def trace_brute(o, d, scene, t_min, t_max, active=None) -> Hit:
-    """Closest hit of every ray over all triangles of ``scene``
-    (SceneBuffers), as one broadcast (rays x triangles) Moller-Trumbore.
-    argmin keeps the first of equal distances, as the JAX package's
-    sequential ``t < best`` scan does.
-
-    o, d: component tuples of (N,) tensors.
-    """
+def _all_tests(o, d, scene, t_min, t_max):
+    """Moller-Trumbore of every ray against every triangle of ``scene``:
+    (valid, t, u, v), each (N, T)."""
     n = scene.num_tris
+    if torch.is_tensor(t_max):
+        t_max = t_max.unsqueeze(1)                             # (N, 1)
 
     def col(name):
         return getattr(scene, name)[:n].unsqueeze(0)          # (1, T)
@@ -72,7 +69,19 @@ def trace_brute(o, d, scene, t_min, t_max, active=None) -> Hit:
     p2 = (col("v2x"), col("v2y"), col("v2z"))
     o2 = tuple(a.unsqueeze(1) for a in o)                      # (N, 1)
     d2 = tuple(a.unsqueeze(1) for a in d)
-    valid, t, u, v = moller_trumbore_soa(o2, d2, p0, p1, p2, t_min, t_max)
+    return moller_trumbore_soa(o2, d2, p0, p1, p2, t_min, t_max)
+
+
+def trace_brute(o, d, scene, t_min, t_max, active=None) -> Hit:
+    """Closest hit of every ray over all triangles of ``scene``
+    (SceneBuffers), as one broadcast (rays x triangles) Moller-Trumbore.
+    argmin keeps the first of equal distances, as the JAX package's
+    sequential ``t < best`` scan does.
+
+    o, d: component tuples of (N,) tensors; t_max: a scalar or an (N,)
+    tensor (a shadow ray's distance to its light sample).
+    """
+    valid, t, u, v = _all_tests(o, d, scene, t_min, t_max)
     t = torch.where(valid, t, float("inf"))
     prim = torch.argmin(t, dim=1, keepdim=True)
     bt = torch.gather(t, 1, prim).squeeze(1)
@@ -85,3 +94,14 @@ def trace_brute(o, d, scene, t_min, t_max, active=None) -> Hit:
         bt = torch.where(active, bt, float("inf"))
         prim = torch.where(active, prim, -1)
     return Hit(t=bt, prim=prim, u=bu, v=bv)
+
+
+def any_hit_tests(o, d, scene, t_min, t_max, active) -> int:
+    """The triangle tests that a scan in id order stopping at its first hit
+    (the CUDA kernels' brute_any_hit, csrc/common.cuh) takes over the
+    ``active`` rays: for each, the first hit triangle's id plus one, or
+    every triangle. A count for a kernel's bound, not a result."""
+    valid = _all_tests(o, d, scene, t_min, t_max)[0][active]
+    first = torch.where(valid.any(1), valid.int().argmax(1) + 1,
+                        scene.num_tris)
+    return int(first.sum(dtype=torch.int64))

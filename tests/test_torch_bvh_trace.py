@@ -288,8 +288,13 @@ def test_oversized_wave_raises():
 
 
 def test_occlusion_raises_naming_nee():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        make_packet_occlusion(None, T_MIN)
+    """K4 is ported (tests/test_torch_occlusion.py): its wrapper no longer
+    refuses, and like K3's refuses a tensor it cannot take before any
+    launch, naming what it needs."""
+    occluded = make_packet_occlusion(_meta_wide(), T_MIN)
+    o = tuple(torch.empty(16, device="meta") for _ in range(3))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        occluded(o, o, torch.empty(16, device="meta"))
 
 
 def test_wide_params_layout():

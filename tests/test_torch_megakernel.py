@@ -148,13 +148,16 @@ def test_non_cpu_non_cuda_tensor_is_refused(wrapper):
 
 def test_kernel_params_layout():
     """The ctypes mirror of sfvp::Params (csrc/common.cuh): 14 ints,
-    7 floats and 5 float[3], 4-byte fields without padding."""
+    7 floats and 5 float[3], then next-event estimation's 3 ints and 4
+    floats, 4-byte fields without padding."""
     import ctypes
 
-    assert len(build.Params._fields_) == 26
+    assert len(build.Params._fields_) == 26 + 7
     assert build.Params.t_min.offset == 4 * 14
     assert build.Params.cam_c.offset == 4 * (14 + 7)
-    assert ctypes.sizeof(build.Params) == 4 * (14 + 7 + 15)
+    assert build.Params.use_nee.offset == 4 * (14 + 7 + 15)
+    assert build.Params.total_area.offset == 4 * (14 + 7 + 15 + 3)
+    assert ctypes.sizeof(build.Params) == 4 * (14 + 7 + 15 + 3 + 4)
 
 
 @pytest.mark.cuda
