@@ -5,7 +5,7 @@
 Phases, each of which raises (exit code 1, no result line) on failure:
   1. device   a CUDA device of compute capability 9.0 (Hopper), and the
               card's name and power limit from nvidia-smi;
-  2. build    nvcc builds the kernels K1, K2, K3 and K5 from
+  2. build    nvcc builds the kernels K1-K5 and K7-K9 from
               sfvp_tpu_torch/csrc/, one nvcc per source in parallel;
   3. twins    each kernel against its plain PyTorch twin at 256x256,
               depth 8: parity at 8 spp, cosine + Russian roulette, and a
@@ -71,11 +71,38 @@ city --scene-tris 100000`` (82,782 triangles, 1,134 of them emissive):
                  events, each beside its twin and its bound; K1 and K5 held
                  to their twins at these shapes.
 
+Instanced scenes (slice 4: the two-level BVH, kernels K7, K8 and K9), on
+the field of ``--scene instanced --scene-tris 220000`` (50 instances of
+three meshes, 211,878 triangles flattened) and the lit field (the same
+and a lamp instance, cosine + RR + NEE + MIS):
+ 17. tlas twins  K7 against its twin on a 256x256 camera wave, a bounce
+                 wave and a random wave (at least 99.99% of rays on the
+                 same triangle, every plane equal there); K8 on every ray
+                 of the lit field's first two shadow waves and a random
+                 wave; K9 at 128x128, 4 spp, depth 8 on both fields;
+ 18. tlas cross  K9 against the wavefront loop over K7 at 256x256, 8 spp
+                 (relative RMSE <= 1e-5, equal segments); K9 on the
+                 instances against K5 on the flattened scene (image means
+                 within 1e-5, < 0.2% of pixels apart by more than 1e-3,
+                 relative RMSE < 5e-3);
+ 19. tlas main   the CLI command of the instanced scene at 1024x1024, 8
+                 spp, depth 8, cosine, 4 steps (K9 only, with the two-level
+                 set-up seconds); one Renderer step with megakernel_regen=
+                 False (K7 only, 64 launches); the lit field: 4 Renderer
+                 steps (K9), 1 with megakernel_regen=False (K7 and K8, 64
+                 launches each); in both wavefront steps every K7 and K8
+                 call between CUDA events, their sum beside the step;
+ 20. tlas times  K9 per step on both fields, K7 per launch on the first-
+                 and third-bounce waves, K8 on the lit field's first-bounce
+                 shadow wave, CUDA events, each beside its twin and its
+                 bound; K9 held to its twin at 1024x1024 x 8 spp on both.
+
 Each kernel's bound is the larger of the bytes it must move over 3.35
 TB/s and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's
 data-sheet rates); for the traversal kernels the operations are counted
-from the box and triangle tests the twins do on the same inputs, and for
-K1's shadow rays from the tests its early-exit scan takes on them.
+from the box and triangle tests (and instance pops) the twins do on the
+same inputs, and for K1's shadow rays from the tests its early-exit scan
+takes on them.
 
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}.
@@ -83,6 +110,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -131,6 +159,28 @@ NEE_FLAGS = dict(sampling="cosine", use_rr=True, use_nee=True, use_mis=True)
 NEE_CLI = ["--sampling", "cosine", "--rr", "--nee", "--mis"]
 NEE_ORACLE_MEAN = 0.01
 NEE_TWIN_SIZE, NEE_TWIN_SPP = 256, 8
+# the instanced path: --scene instanced --scene-tris 220000 (the JAX
+# bench's bench_instanced_tlas scene and estimator, bench.py:317-346), and
+# the lit field: the same instances and the lamp of tests/test_tlas.py:
+# 131-143 under cosine + RR + NEE + MIS
+FIELD_TRIS, FIELD_STEPS, LIT_STEPS = 220_000, 4, 4
+FIELD_CLI = ["--sampling", "cosine"]
+LIT_FLAGS = dict(NEE_FLAGS, sky_emission=(0.05, 0.05, 0.05))
+TLAS_CROSS_SIZE, TLAS_CROSS_SPP = 256, 8
+# K9 on the instances against K5 on the flattened scene: the two differ by
+# object-space rounding (tests/test_tlas.py:82), which moves a few paths:
+# image means within K9_K5_MEAN (relative), fewer than K9_K5_OFF_FRAC of
+# the pixels apart by more than K9_K5_OFF_ABS, relative RMSE below
+# K9_K5_REL_RMSE. An NVIDIA H100 80GB HBM3 (700 W) read 1.1e-6, 0.0214%
+# and 7.8e-4 at 256x256, 8 spp; the limits leave ~10x room, so a walk
+# that lost a small instance's triangles fails
+K9_K5_MEAN, K9_K5_OFF_FRAC, K9_K5_OFF_ABS = 1e-5, 2e-3, 1e-3
+K9_K5_REL_RMSE = 5e-3
+# the two-level walks beside the single-level ones: an instance pop
+# re-derives the ray in the instance's space (o' 9 mul + 9 add, d' 9 mul +
+# 6 add, three safe reciprocals of 4 ops each), and a hit's 3 vertices go
+# to world space (3 x (9 mul + 9 add)), counted from csrc/two_level.cuh
+INST_OPS, WORLD_OPS = 45, 54
 
 
 def check(cond, msg):
@@ -189,7 +239,8 @@ def build_phase():
     log = lib.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "stack frame")):
                 print("  ptxas:", line.strip())
 
 
@@ -417,8 +468,12 @@ def walk_ops(node_pops, leaf_pops, sort=True):
             + leaf_pops * 8 * TRI_OPS_ROWS)
 
 
-def traversal_ops(counts):
-    return walk_ops(counts["node_pops"], counts["leaf_pops"])
+def traversal_ops(counts, prefix="", sort=True):
+    """FP32 operations of the pops a twin counted (``prefix`` "shadow_":
+    those of its shadow walks), instance pops included."""
+    return (walk_ops(counts[prefix + "node_pops"],
+                     counts[prefix + "leaf_pops"], sort)
+            + counts.get(prefix + "inst_pops", 0) * INST_OPS)
 
 
 def bound(ops, nbytes):
@@ -455,45 +510,119 @@ def scene_setup(name, tris, **cfg_kw):
                 dw=device_wide(wide, DEVICE), lights=lights)
 
 
-def capture_waves(cfg, sphere, calls):
-    """The (7, N) ray planes that K3 receives at the given calls of one
-    wavefront step of ``cfg`` (call c = bounce c of the first sample)."""
-    from sfvp_tpu_torch import init_state
-    from sfvp_tpu_torch.dispatch import select_render_step
-    from sfvp_tpu_torch.kernels import bvh_packet
+@contextlib.contextmanager
+def spying(module, name, spy):
+    """Put ``spy`` in place of ``module.name`` for the block. A wrapper
+    counts its launches on the module's function, so the count carries
+    over the spy and back."""
+    real = getattr(module, name)
+    spy.launches = getattr(real, "launches", 0)
+    setattr(module, name, spy)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+        if hasattr(real, "launches"):
+            real.launches = spy.launches
 
-    # the trace builds each call's planes with ray_planes: record those
-    real, seen = bvh_packet.ray_planes, {}
+
+def capture(module, name, calls, run, planes):
+    """The (7, N) ray planes seen at the given calls (0, 1, ...) of
+    ``module.name`` while ``run()`` renders one step; ``planes(args,
+    result)`` picks them out of a call."""
+    seen = {"n": 0}
 
     def spy(*args, **kw):
-        rays = real(*args, **kw)
-        n = len(seen.setdefault("n", []))
-        seen["n"].append(n)
-        if n in calls:
-            seen[n] = rays.clone()
-        return rays
+        out = real(*args, **kw)
+        if seen["n"] in calls:
+            seen[seen["n"]] = planes(args, out).clone()
+        seen["n"] += 1
+        return out
 
-    bvh_packet.ray_planes = spy
-    try:
-        step = select_render_step(
-            dataclasses.replace(cfg, megakernel_regen=False),
-            sphere["buffers"], wide=sphere["wide"])
-        step(init_state(cfg.height, cfg.width, DEVICE))
-    finally:
-        bvh_packet.ray_planes = real
+    with spying(module, name, spy) as real:
+        run()
     return [seen[c] for c in calls]
 
 
-def compare_k3(label, dw, t_min, rays, got=None, exp=None):
-    """Hold K3's payload planes against its twin's: at least K3_SAME_TRI
-    of the rays on the same triangle (or both missing), every plane equal
-    there. Returns the largest absolute difference on those rays."""
-    from sfvp_tpu_torch.kernels.bvh_packet import packet_trace, packet_trace_plain
+def timed_calls(module, names, run):
+    """Run ``run()`` with CUDA events recorded before and after every call
+    of ``module``'s functions ``names``; returns the summed milliseconds
+    of each function's calls and ``run()``'s result. An event pair holds
+    the call's kernel and whatever host time the card waits on inside the
+    wrapper."""
+    events = {name: [] for name in names}
 
+    def spy_of(name, real):
+        def spy(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return spy
+
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            real = getattr(module, name)
+            stack.enter_context(spying(module, name, spy_of(name, real)))
+        out = run()
+    torch.cuda.synchronize()
+    return {name: sum(a.elapsed_time(b) for a, b in ev)
+            for name, ev in events.items()}, out
+
+
+def capture_waves(cfg, s, calls, shadow=False):
+    """The (7, N) ray planes that the payload trace (K3, or K7 for an
+    instanced scene ``s``) or, with ``shadow``, the occlusion kernel (K4,
+    K8) receives at the given calls of one wavefront step of ``cfg`` (call
+    c = bounce c of the first sample)."""
+    from sfvp_tpu_torch import init_state
+    from sfvp_tpu_torch.dispatch import (
+        select_instanced_render_step, select_render_step)
+    from sfvp_tpu_torch.kernels import bvh_packet, bvh_tlas
+
+    cfg = dataclasses.replace(cfg, megakernel_regen=False)
+    if "tl" in s:
+        module, occlusion = bvh_tlas, "two_level_occlusion"
+        step = select_instanced_render_step(cfg, s["flat"], s["tl"])
+    else:
+        module, occlusion = bvh_packet, "packet_occlusion"
+        step = select_render_step(cfg, s["buffers"], wide=s["wide"])
+
+    def run():
+        step(init_state(cfg.height, cfg.width, DEVICE))
+
+    # the trace builds each call's planes with ray_planes: record those;
+    # the occlusion hook passes its planes to the occlusion wrapper
+    if shadow:
+        return capture(module, occlusion, calls, run, lambda a, out: a[2])
+    return capture(module, "ray_planes", calls, run, lambda a, out: out)
+
+
+def kernel_fns(kernel):
+    """The wrapper and the plain twin of a payload trace (K3, K7) or an
+    occlusion kernel (K4, K8)."""
+    from sfvp_tpu_torch.kernels import bvh_packet as p
+    from sfvp_tpu_torch.kernels import bvh_tlas as t
+
+    return {"K3": (p.packet_trace, p.packet_trace_plain),
+            "K4": (p.packet_occlusion, p.packet_occlusion_plain),
+            "K7": (t.two_level_trace, t.two_level_trace_plain),
+            "K8": (t.two_level_occlusion, t.two_level_occlusion_plain)}[kernel]
+
+
+def compare_trace(kernel, label, tree, t_min, rays, got=None, exp=None):
+    """Hold a payload trace's planes (K3 over a wide BVH, K7 over a
+    two-level one) against its twin's: at least K3_SAME_TRI of the rays on
+    the same triangle (or both missing), every plane equal there. Returns
+    the largest absolute difference on those rays."""
+    trace, plain = kernel_fns(kernel)
     if got is None:
-        got = packet_trace(dw, t_min, rays)
+        got = trace(tree, t_min, rays)
     if exp is None:
-        exp = packet_trace_plain(dw, t_min, rays)
+        exp = plain(tree, t_min, rays)
     miss_g, miss_e = torch.isinf(got[0]), torch.isinf(exp[0])
     same = (miss_g & miss_e) | (~miss_g & ~miss_e
                                 & (got[3:] == exp[3:]).all(0))
@@ -502,12 +631,12 @@ def compare_k3(label, dw, t_min, rays, got=None, exp=None):
     diff = (got[:, hit] - exp[:, hit]).abs()
     mx = float(diff.max()) if hit.any() else 0.0
     equal = bool((got[:, hit] == exp[:, hit]).all())
-    print(f"  K3 {label:14s} {rays.shape[1]} rays, {int(hit.sum())} hits, "
-          f"same triangle {frac:.6f}, planes equal there: {equal}, max abs "
-          f"{mx:.3e}")
+    print(f"  {kernel} {label:14s} {rays.shape[1]} rays, {int(hit.sum())} "
+          f"hits, same triangle {frac:.6f}, planes equal there: {equal}, "
+          f"max abs {mx:.3e}")
     check(frac >= K3_SAME_TRI and equal,
-          f"K3 {label} disagrees with its twin: same triangle on {frac}, "
-          f"planes equal {equal}")
+          f"{kernel} {label} disagrees with its twin: same triangle on "
+          f"{frac}, planes equal {equal}")
     return mx
 
 
@@ -532,7 +661,8 @@ def bvh_twin_phase(sphere):
                      device=DEVICE)
     d = d / d.norm(dim=0)
     random = ray_planes(tuple(o), tuple(d), cfg.t_max)
-    worst = {"K3": max(compare_k3(label, dw, cfg.t_min, rays) for label, rays
+    worst = {"K3": max(compare_trace("K3", label, dw, cfg.t_min, rays)
+                       for label, rays
                        in (("camera", camera), ("bounce", bounce),
                            ("random", random)))}
     n = BVH_TWIN_SIZE
@@ -589,12 +719,17 @@ def k5_vs_k1_phase(nee=False):
 
 def counters():
     from sfvp_tpu_torch.kernels.bvh_packet import packet_occlusion, packet_trace
+    from sfvp_tpu_torch.kernels.bvh_tlas import (
+        two_level_occlusion, two_level_trace)
     from sfvp_tpu_torch.kernels.megakernel import wave_render
-    from sfvp_tpu_torch.kernels.megakernel_bvh import bvh_regen_render
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render, tlas_regen_render)
     from sfvp_tpu_torch.kernels.megakernel_regen import regen_render
 
     return {"K1": regen_render, "K2": wave_render, "K3": packet_trace,
-            "K4": packet_occlusion, "K5": bvh_regen_render}
+            "K4": packet_occlusion, "K5": bvh_regen_render,
+            "K7": two_level_trace, "K8": two_level_occlusion,
+            "K9": tlas_regen_render}
 
 
 def only(**launched):
@@ -630,7 +765,6 @@ def print_steps(recs):
 def run_cli(tmp, name, argv):
     """Run the CLI as a user would; returns its set-up seconds (the
     wide-BVH build it reports), its JSONL records and its PNG."""
-    import contextlib
     import io
     import re
 
@@ -742,8 +876,8 @@ def bvh_timing_phase(sphere):
         plain, exp = cuda_ms(lambda: packet_trace_plain(
             dw, cfg.t_min, rays, counts), 1, warm=False)
         active = int((rays[6] > cfg.t_min).sum())
-        worst["K3"] = max(worst["K3"], compare_k3(
-            label, dw, cfg.t_min, rays, got=got, exp=exp))
+        worst["K3"] = max(worst["K3"], compare_trace(
+            "K3", label, dw, cfg.t_min, rays, got=got, exp=exp))
         b = bound(traversal_ops(counts),
                   tree_bytes + rays.shape[1] * (7 + 19) * 4)
         print(f"  K3 {label}: {active} active rays, kernel {ms:.3f} "
@@ -820,51 +954,20 @@ def sort_phase(sphere):
     return ms
 
 
-def capture_shadow_waves(cfg, s, calls):
-    """The (7, N) shadow-ray planes that K4 receives at the given calls of
-    one wavefront step of ``cfg`` (call c = bounce c of the first
-    sample), NEE on."""
-    from sfvp_tpu_torch import init_state
-    from sfvp_tpu_torch.dispatch import select_render_step
-    from sfvp_tpu_torch.kernels import bvh_packet
-
-    # the occlusion hook passes each wave's planes to packet_occlusion
-    real, seen = bvh_packet.packet_occlusion, {"n": 0}
-
-    def spy(dw, t_min, rays):
-        if seen["n"] in calls:
-            seen[seen["n"]] = rays.clone()
-        seen["n"] += 1
-        return real(dw, t_min, rays)
-
-    # the wrapper counts its launches on the module's packet_occlusion
-    spy.launches = real.launches
-    bvh_packet.packet_occlusion = spy
-    try:
-        step = select_render_step(
-            dataclasses.replace(cfg, megakernel_regen=False), s["buffers"],
-            wide=s["wide"])
-        step(init_state(cfg.height, cfg.width, DEVICE))
-    finally:
-        bvh_packet.packet_occlusion = real
-        real.launches = spy.launches
-    return [seen[c] for c in calls]
-
-
-def compare_k4(label, dw, t_min, rays, got=None, exp=None):
-    """Hold K4's answers against its twin's: equal on every ray."""
-    from sfvp_tpu_torch.kernels.bvh_packet import (
-        packet_occlusion, packet_occlusion_plain)
-
+def compare_occlusion(kernel, label, tree, t_min, rays, got=None,
+                      exp=None):
+    """Hold an occlusion kernel's answers (K4, K8) against its twin's:
+    equal on every ray."""
+    occluded, plain = kernel_fns(kernel)
     if got is None:
-        got = packet_occlusion(dw, t_min, rays)
+        got = occluded(tree, t_min, rays)
     if exp is None:
-        exp = packet_occlusion_plain(dw, t_min, rays)
+        exp = plain(tree, t_min, rays)
     same = float((got == exp).float().mean())
-    print(f"  K4 {label:14s} {rays.shape[1]} rays, "
+    print(f"  {kernel} {label:14s} {rays.shape[1]} rays, "
           f"{int((rays[6] > t_min).sum())} with a window, "
           f"{int(exp.sum())} occluded; equal on {same:.6f} of rays")
-    check(same == 1.0, f"K4 {label} disagrees with its twin on "
+    check(same == 1.0, f"{kernel} {label} disagrees with its twin on "
                        f"{1.0 - same} of rays")
     return float((got.float() - exp.float()).abs().max())
 
@@ -922,8 +1025,9 @@ def nee_twin_phase(city):
 
     cfg, dw = city["cfg"], city["dw"]
     size = 2 * BVH_TWIN_SIZE
-    first, second = capture_shadow_waves(dataclasses.replace(
-        cfg, width=size, height=size, spp_per_step=1), city, (0, 1))
+    first, second = capture_waves(dataclasses.replace(
+        cfg, width=size, height=size, spp_per_step=1), city, (0, 1),
+        shadow=True)
     g = np.random.default_rng(0)
     m = size * size
     o = torch.tensor(g.uniform(-10.0, 10.0, (3, m)), dtype=torch.float32,
@@ -936,7 +1040,7 @@ def nee_twin_phase(city):
                         device=DEVICE)
     active = torch.tensor(g.uniform(size=m) > 0.1, device=DEVICE)
     random = ray_planes(tuple(o), tuple(d), tmax, active)
-    worst["K4"] = max(compare_k4(label, dw, cfg.t_min, rays)
+    worst["K4"] = max(compare_occlusion("K4", label, dw, cfg.t_min, rays)
                       for label, rays in (("first bounce", first),
                                           ("second bounce", second),
                                           ("random", random)))
@@ -1104,19 +1208,313 @@ def nee_timing_phase(city):
     print(f"  K5 nee city: {segs} segments, bound {times['K5'][2]:.3f} ms "
           f"({times['K5'][3]})")
 
-    rays = capture_shadow_waves(dataclasses.replace(cfg, spp_per_step=1),
-                                city, (0,))[0]
+    rays = capture_waves(dataclasses.replace(cfg, spp_per_step=1), city,
+                         (0,), shadow=True)[0]
     ms, got = cuda_ms(lambda: packet_occlusion(dw, cfg.t_min, rays), 20)
     counts = {}
     plain, exp = cuda_ms(lambda: packet_occlusion_plain(
         dw, cfg.t_min, rays, counts), 1, warm=False)
-    worst["K4"] = compare_k4("first bounce", dw, cfg.t_min, rays, got=got,
-                             exp=exp)
+    worst["K4"] = compare_occlusion("K4", "first bounce", dw, cfg.t_min,
+                                    rays, got=got, exp=exp)
     b = bound(walk_ops(counts["node_pops"], counts["leaf_pops"], sort=False),
               tree_nbytes(wide) + rays.shape[1] * (7 * 4 + 1))
     times["K4"] = (ms, plain) + b
     print(f"  K4 first bounce: kernel {ms:.3f} ms/launch, plain twin "
           f"{plain:.1f} ms; pops {counts}; bound {b[0]:.3f} ms ({b[1]})")
+    return times, worst
+
+
+def field_setup():
+    """The instanced field of ``--scene instanced --scene-tris
+    FIELD_TRIS`` with the CLI's view and sky, cosine, and the lit field
+    (the same instances and the lamp, LIT_FLAGS): each with its flattened
+    buffers (materials, light table) and its two-level BVH on the card."""
+    from sfvp_tpu_torch import RenderConfig, upload
+    from sfvp_tpu_torch.accel.instances import Instance, flatten_instances
+    from sfvp_tpu_torch.accel.tlas import build_two_level
+    from sfvp_tpu_torch.cli import procedural_scene
+    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
+    from sfvp_tpu_torch.kernels.bvh_tlas import device_two_level
+    from sfvp_tpu_torch.scene.objload import Scene
+
+    insts, cfg = procedural_scene("instanced", FIELD_TRIS, RenderConfig(
+        width=BVH_W, height=BVH_H, spp_per_step=BVH_SPP, max_depth=BVH_DEPTH,
+        sampling="cosine"))
+    lamp = Scene(
+        vertices=np.asarray([
+            [-1.2, 4.0, -1.2], [1.2, 4.0, -1.2], [1.2, 4.0, 1.2],
+            [-1.2, 4.0, -1.2], [1.2, 4.0, 1.2], [-1.2, 4.0, 1.2],
+        ], np.float32),
+        indices=np.arange(6, dtype=np.uint32),
+        face_diffuse=np.zeros((2, 3), np.float32),
+        face_emission=np.full((2, 3), 9.0, np.float32))
+    out = []
+    for name, scene, c in (
+            ("field", insts, cfg),
+            ("lit field", insts + [Instance(scene=lamp)],
+             dataclasses.replace(cfg, **LIT_FLAGS))):
+        t0 = time.perf_counter()
+        tl = build_two_level(scene)
+        secs = time.perf_counter() - t0
+        flat = upload(flatten_instances(scene), device=DEVICE)
+        lights = build_light_table_from_buffers(flat)
+        print(f"  {name}: {len(scene)} instances, {flat.num_tris} triangles "
+              f"flattened ({lights.num if lights else 0} emissive), "
+              f"two-level BVH {tl.nodes.shape[0]} nodes + {tl.tris.shape[0]} "
+              f"leaf + {tl.inst.shape[0]} instance rows, max_stack "
+              f"{tl.max_stack}, built in {secs:.3f} s")
+        out.append(dict(insts=scene, cfg=c, tl=tl, flat=flat, lights=lights,
+                        dt=device_two_level(tl, DEVICE)))
+    return out
+
+
+def two_level_nbytes(tl):
+    """Distinct bytes of a two-level tree: the 64 used lanes of a node row,
+    the 128 of a leaf row, the 25 of an instance row."""
+    return (tl.nodes.shape[0] * 64 + tl.tris.shape[0] * 128
+            + tl.inst.shape[0] * 25) * 4
+
+
+def random_rays(m, seed, shadow=False):
+    """(7, m) planes of random rays over the field (origins above the
+    ground); with ``shadow``, random windows and 10% inactive rays."""
+    from sfvp_tpu_torch.kernels.bvh_packet import ray_planes
+
+    g = np.random.default_rng(seed)
+    o = torch.tensor(g.uniform(-8.0, 8.0, (3, m)), dtype=torch.float32,
+                     device=DEVICE)
+    o[1] = o[1].abs() * 0.5 + 0.1
+    d = torch.tensor(g.normal(size=(3, m)), dtype=torch.float32,
+                     device=DEVICE)
+    d = d / d.norm(dim=0)
+    if not shadow:
+        return ray_planes(tuple(o), tuple(d), 1e4)
+    tmax = torch.tensor(g.uniform(0.0, 12.0, m), dtype=torch.float32,
+                        device=DEVICE)
+    active = torch.tensor(g.uniform(size=m) > 0.1, device=DEVICE)
+    return ray_planes(tuple(o), tuple(d), tmax, active)
+
+
+def tlas_twin_phase(field, lit):
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render_plain, tlas_regen_render)
+
+    size, n = 2 * BVH_TWIN_SIZE, BVH_TWIN_SIZE
+    phase(f"tlas twins: K7 on {size}^2-ray waves of the {FIELD_TRIS // 1000}k "
+          f"instanced field, K8 on the lit field's shadow waves, K9 at {n}x{n}, "
+          f"{BVH_TWIN_SPP} spp, depth {BVH_DEPTH}: cosine, and cosine + RR + "
+          "NEE + MIS on the lit field")
+    wave = dict(width=size, height=size, spp_per_step=1)
+    camera, bounce = capture_waves(dataclasses.replace(field["cfg"], **wave),
+                                   field, (0, 1))
+    t_min = field["cfg"].t_min
+    worst = {"K7": max(compare_trace("K7", label, field["dt"], t_min, rays)
+                       for label, rays in (
+                           ("camera", camera), ("bounce", bounce),
+                           ("random", random_rays(size * size, 0))))}
+    first, second = capture_waves(dataclasses.replace(lit["cfg"], **wave),
+                                  lit, (0, 1), shadow=True)
+    worst["K8"] = max(compare_occlusion("K8", label, lit["dt"], t_min, rays)
+                      for label, rays in (
+                          ("first bounce", first), ("second bounce", second),
+                          ("random", random_rays(size * size, 1, True))))
+    worst["K9"] = 0.0
+    for case, s in (("field", field), ("lit field", lit)):
+        args = dict(cfg=dataclasses.replace(s["cfg"], width=n, height=n,
+                                            spp_per_step=BVH_TWIN_SPP),
+                    global_shape=(n, n), npix=n * n, has_mirrors=False,
+                    lights=s["lights"])
+        got = tlas_regen_render(s["dt"], 3, 0, **args)
+        exp = bvh_regen_render_plain(s["dt"], 3, 0, **args)
+        worst["K9"] = max(worst["K9"], compare(
+            f"K9 {case}", got, exp, BVH_TWIN_SPP, K5_TWIN_REL_RMSE))
+    return worst
+
+
+def tlas_cross_phase(field):
+    """K9 against the wavefront loop over K7 (the same estimator in two
+    float orders), and K9 on the instances against K5 on the flattened
+    scene (object-space against world-space rounding)."""
+    from sfvp_tpu_torch import init_state
+    from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
+    from sfvp_tpu_torch.dispatch import select_instanced_render_step
+    from sfvp_tpu_torch.kernels.bvh_packet import device_wide
+    from sfvp_tpu_torch.kernels.megakernel_bvh import make_bvh_regen_render_step
+
+    n, spp = TLAS_CROSS_SIZE, TLAS_CROSS_SPP
+    phase(f"tlas cross-checks at {n}x{n}, {spp} spp, depth {BVH_DEPTH}, "
+          "cosine: K9 vs the wavefront loop over K7; K9 on the instances vs "
+          "K5 on the flattened scene")
+    cfg = dataclasses.replace(field["cfg"], width=n, height=n,
+                              spp_per_step=spp)
+    flat = field["flat"]
+
+    def render(step):
+        return step(init_state(n, n, DEVICE))
+
+    k9 = render(make_bvh_regen_render_step(cfg, flat, tl=field["dt"]))
+    wf = render(select_instanced_render_step(
+        dataclasses.replace(cfg, megakernel_regen=False), flat, field["tl"]))
+    rel = rel_rmse(k9.accum, wf.accum)
+    segs = [round(float(s.mrays) * 1e6) for s in (k9, wf)]
+    print(f"  K9 vs wavefront over K7: rel_rmse={rel:.3e} max_abs="
+          f"{float((k9.accum - wf.accum).abs().max()):.3e} segs={segs[0]} vs "
+          f"{segs[1]}")
+    check(rel <= K5_TWIN_REL_RMSE and float(k9.mrays) == float(wf.mrays),
+          f"K9 disagrees with the wavefront loop over K7: rel_rmse {rel}, "
+          f"segments {segs}")
+
+    t0 = time.perf_counter()
+    wide = build_wide_from_buffers(flat)
+    print(f"  flattened scene: wide BVH {wide.nodes.shape[0]} nodes + "
+          f"{wide.tris.shape[0]} leaf rows, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    k5 = render(make_bvh_regen_render_step(cfg, flat, device_wide(wide,
+                                                                   DEVICE)))
+    mean9, mean5 = float(k9.accum.mean()), float(k5.accum.mean())
+    mean_rel = abs(mean9 / mean5 - 1.0)
+    off = float(((k9.accum - k5.accum).abs().amax(-1) > K9_K5_OFF_ABS)
+                .float().mean())
+    rel5 = rel_rmse(k9.accum, k5.accum)
+    print(f"  K9 on instances vs K5 on the flattened scene: means {mean9:.6f} "
+          f"vs {mean5:.6f} (rel {mean_rel:.3e}, bound {K9_K5_MEAN}); "
+          f"{off:.4%} of pixels apart by > {K9_K5_OFF_ABS} (bound "
+          f"{K9_K5_OFF_FRAC:.1%}); rel_rmse {rel5:.3e} (bound "
+          f"{K9_K5_REL_RMSE})")
+    check(mean_rel < K9_K5_MEAN and off < K9_K5_OFF_FRAC
+          and rel5 < K9_K5_REL_RMSE,
+          f"K9 on the instances and K5 on the flattened scene differ: mean "
+          f"rel {mean_rel}, pixels apart {off}, rel_rmse {rel5}")
+
+
+def tlas_main_path_phase(tmp, field, lit):
+    from sfvp_tpu_torch import Renderer
+    from sfvp_tpu_torch.kernels import bvh_tlas
+
+    per_step = BVH_SPP * BVH_DEPTH
+    phase(f"tlas main path: cli --scene instanced --scene-tris {FIELD_TRIS} "
+          f"at {BVH_W}x{BVH_H}, {BVH_SPP} spp, depth {BVH_DEPTH}, cosine, "
+          f"{FIELD_STEPS} steps (K9); Renderer with megakernel_regen=False, "
+          f"1 step (K7); the lit field, cosine + RR + NEE + MIS: {LIT_STEPS} "
+          "Renderer steps (K9), 1 with megakernel_regen=False (K7 + K8)")
+    runs = {}
+    reset_counts()
+    setup, recs, img = run_cli(tmp, "field", [
+        "--scene", "instanced", "--scene-tris", str(FIELD_TRIS), *FIELD_CLI,
+        "--spp", str(BVH_SPP), "--max-depth", str(BVH_DEPTH), "--width",
+        str(BVH_W), "--height", str(BVH_H), "--steps", str(FIELD_STEPS)])
+    runs["cli_field"] = read_counts()
+    print(f"  launches: {runs['cli_field']}")
+    check(runs["cli_field"] == only(K9=FIELD_STEPS),
+          f"cli instanced launches {runs['cli_field']}")
+    check(len(recs) == FIELD_STEPS, f"{len(recs)} log records")
+    print_steps(recs)
+    check_image("K9 field", img, BVH_H, BVH_W)
+
+    wrappers = {"K7": "two_level_trace", "K8": "two_level_occlusion"}
+    for name, s, steps, kernels in (
+            ("renderer_k7", field, 1, dict(K7=per_step)),
+            ("renderer_lit_k9", lit, LIT_STEPS, dict(K9=LIT_STEPS)),
+            ("renderer_k7k8", lit, 1, dict(K7=per_step, K8=per_step))):
+        cfg = s["cfg"]
+        if "K9" not in kernels:
+            cfg = dataclasses.replace(cfg, megakernel_regen=False)
+        log = os.path.join(tmp, f"{name}.jsonl")
+        reset_counts()
+        r = Renderer(cfg, s["insts"], DEVICE)
+        # the wavefront steps: every K7 and K8 call between CUDA events,
+        # their sum beside the step's host time
+        names = [wrappers[k] for k in kernels if k in wrappers]
+        in_kernels, img = timed_calls(
+            bvh_tlas, names, lambda: r.run(steps, log_path=log,
+                                           progress=False))
+        runs[name] = read_counts()
+        print(f"  {name}: launches {runs[name]}; set-up: two-level BVH built "
+              f"in {r.bvh_build_s:.3f} s")
+        check(runs[name] == only(**kernels), f"{name} launches {runs[name]}")
+        recs = [json.loads(x) for x in open(log).read().splitlines()]
+        check(len(recs) == steps, f"{len(recs)} log records")
+        print_steps(recs)
+        if names:
+            step_ms = recs[0]["step_s"] * 1e3
+            total = sum(in_kernels.values())
+            print(f"  {name}: in the kernels' calls (CUDA events) " + ", ".join(
+                f"{k} {ms:.3f} ms" for k, ms in in_kernels.items())
+                + f"; {total:.3f} ms of the step's {step_ms:.2f} ms (host), "
+                f"{total / step_ms:.1%}")
+        check_image(name, img, BVH_H, BVH_W)
+    return runs
+
+
+def tlas_timing_phase(field, lit):
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render_plain, tlas_regen_render)
+
+    phase(f"tlas times and twin check at the main path's shape ({BVH_W}x"
+          f"{BVH_H}, {BVH_SPP} spp, depth {BVH_DEPTH}; cosine on the field, "
+          "cosine + RR + NEE + MIS on the lit field), CUDA events")
+    npix = BVH_W * BVH_H
+    times, worst = {}, {"K9": 0.0}
+    for case, s in (("field", field), ("lit field", lit)):
+        dt = s["dt"]
+        args = dict(cfg=s["cfg"], global_shape=(BVH_H, BVH_W), npix=npix,
+                    has_mirrors=False, lights=s["lights"])
+        ms, got = cuda_ms(lambda: tlas_regen_render(dt, 1, 0, **args), 5)
+        counts = {}
+        plain, exp = cuda_ms(lambda: bvh_regen_render_plain(
+            dt, 1, 0, counts=counts, **args), 1, warm=False)
+        print(f"  K9 {case}: kernel {ms:.3f} ms/step, plain twin {plain:.1f} "
+              f"ms/step; twin counts {counts}")
+        worst["K9"] = max(worst["K9"], compare(
+            f"K9 {case} main", got, exp, BVH_SPP, K5_TWIN_REL_RMSE))
+        segs = int(exp[3].sum(dtype=torch.int64))
+        ops = (traversal_ops(counts) + counts["hits"] * WORLD_OPS
+               + segs * SHADE_OPS)
+        nbytes = two_level_nbytes(s["tl"]) + npix * 16
+        if s["cfg"].use_nee:
+            ops += (traversal_ops(counts, "shadow_", sort=False)
+                    + counts["shadow_rays"] * NEE_OPS)
+            nbytes += s["lights"].rows.numel() * 4
+        times[f"K9 {case}"] = (ms, plain) + bound(ops, nbytes)
+        print(f"  K9 {case}: {segs} segments ({ms * 1e6 / segs:.3f} "
+              f"ns/segment), {counts['node_pops'] / segs:.3f} node, "
+              f"{counts['leaf_pops'] / segs:.3f} leaf and "
+              f"{counts['inst_pops'] / segs:.3f} instance pops per segment; "
+              f"bound {times[f'K9 {case}'][2]:.3f} ms "
+              f"({times[f'K9 {case}'][3]})")
+
+    t_min = field["cfg"].t_min
+    one = dict(spp_per_step=1)
+    first, later = capture_waves(dataclasses.replace(field["cfg"], **one),
+                                 field, (0, 2))
+    shadow = capture_waves(dataclasses.replace(lit["cfg"], **one), lit, (0,),
+                           shadow=True)[0]
+    for kernel, label, s, rays in (
+            ("K7", "first bounce", field, first),
+            ("K7", "third bounce", field, later),
+            ("K8", "first bounce", lit, shadow)):
+        dt = s["dt"]
+        fn, plain_fn = kernel_fns(kernel)
+        ms, got = cuda_ms(lambda: fn(dt, t_min, rays), 20)
+        counts = {}
+        plain, exp = cuda_ms(lambda: plain_fn(dt, t_min, rays, counts), 1,
+                             warm=False)
+        if kernel == "K7":
+            mx = compare_trace(kernel, label, dt, t_min, rays, got=got,
+                               exp=exp)
+            ops = (traversal_ops(counts)
+                   + int(torch.isfinite(exp[0]).sum()) * WORLD_OPS)
+            per_ray = (7 + 19) * 4
+        else:
+            mx = compare_occlusion(kernel, label, dt, t_min, rays, got=got,
+                                   exp=exp)
+            ops, per_ray = traversal_ops(counts, sort=False), 7 * 4 + 1
+        worst[kernel] = max(worst.get(kernel, 0.0), mx)
+        b = bound(ops, two_level_nbytes(s["tl"]) + rays.shape[1] * per_ray)
+        print(f"  {kernel} {label}: {int((rays[6] > t_min).sum())} active "
+              f"rays, kernel {ms:.3f} ms/launch, plain twin {plain:.1f} ms; "
+              f"pops {counts}; bound {b[0]:.4f} ms ({b[1]})")
+        times.setdefault(kernel, (ms, plain) + b)
     return times, worst
 
 
@@ -1169,10 +1567,27 @@ def main() -> int:
         nee_runs = nee_main_path_phase(tmp)
     nee_times, nee_main_worst = nee_timing_phase(city)
     nee_worst = {k: max(v, nee_main_worst[k]) for k, v in nee_worst.items()}
+    del city
+
+    phase(f"tlas set-up: the {FIELD_TRIS // 1000}k instanced field and the "
+          "lit field")
+    field, lit = field_setup()
+    tlas_worst = tlas_twin_phase(field, lit)
+    tlas_cross_phase(field)
+    with tempfile.TemporaryDirectory() as tmp:
+        tlas_runs = tlas_main_path_phase(tmp, field, lit)
+    tlas_times, tlas_main_worst = tlas_timing_phase(field, lit)
+    tlas_worst = {k: max(v, tlas_main_worst[k]) for k, v in tlas_worst.items()}
 
     step = f"step ({MAIN_W}x{MAIN_H}, {MAIN_SPP} spp, Cornell)"
     city_step = (f"step ({BVH_W}x{BVH_H}, {BVH_SPP} spp, city, cosine + RR "
                  "+ NEE + MIS)")
+    field_step = (f"step ({BVH_W}x{BVH_H}, {BVH_SPP} spp, "
+                  f"{FIELD_TRIS // 1000}k instanced field, cosine)")
+    lit_step = (f"step ({BVH_W}x{BVH_H}, {BVH_SPP} spp, lit "
+                f"{FIELD_TRIS // 1000}k instanced field, cosine + RR + NEE + "
+                "MIS)")
+    field_wave = f"launch on the {BVH_W}x{BVH_H} first-bounce"
     report = {"kernels": [
         kernel_entry("regen_render (K1)", "sfvp_tpu_torch/csrc/regen_render.cu",
                      "sfvp_tpu/kernels/megakernel_regen.py:1137", step,
@@ -1204,6 +1619,24 @@ def main() -> int:
                      bvh_runs["cli_100k"]["K5"], worst["K5"], times["K5"],
                      nee=(city_step, nee_runs["cli_city"]["K5"],
                           nee_worst["K5"], nee_times["K5"])),
+        kernel_entry("tlas_trace (K7)", "sfvp_tpu_torch/csrc/tlas_trace.cu",
+                     "sfvp_tpu/kernels/bvh_tlas.py:403",
+                     f"{field_wave} wave (instanced field)",
+                     tlas_runs["renderer_k7"]["K7"], tlas_worst["K7"],
+                     tlas_times["K7"]),
+        kernel_entry("tlas_occlusion (K8)",
+                     "sfvp_tpu_torch/csrc/tlas_occlusion.cu",
+                     "sfvp_tpu/kernels/bvh_tlas.py:666",
+                     f"{field_wave} shadow wave (lit field)",
+                     tlas_runs["renderer_k7k8"]["K8"], tlas_worst["K8"],
+                     tlas_times["K8"]),
+        kernel_entry("tlas_regen_render (K9)",
+                     "sfvp_tpu_torch/csrc/bvh_regen_render.cu",
+                     "sfvp_tpu/kernels/megakernel_bvh.py:2326", field_step,
+                     tlas_runs["cli_field"]["K9"], tlas_worst["K9"],
+                     tlas_times["K9 field"],
+                     nee=(lit_step, tlas_runs["renderer_lit_k9"]["K9"],
+                          tlas_worst["K9"], tlas_times["K9 lit field"])),
     ]}
     print(card)
     print(json.dumps(report))

@@ -9,9 +9,12 @@ Example:
 
     python -m sfvp_tpu_torch.cli --sampling cosine --rr --nee --mis \
         --steps 8 --out cornell_nee.png
+    python -m sfvp_tpu_torch.cli --scene instanced --scene-tris 220000 \
+        --sampling cosine --spp 8 --steps 4 --out field.png
 
 Flags of features not ported yet (--env-map, --lens-radius, --focus-dist,
---dist, --adaptive, --scene instanced) raise NotImplementedError.
+--dist, --adaptive) raise NotImplementedError; --env-map with --scene
+instanced raises ValueError, as in sfvp_tpu.
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["cornell", "sphere", "terrain", "city",
                             "instanced"],
                    default="cornell",
-                   help="test scene when --obj is not given (instanced "
-                        "is not ported yet)")
+                   help="test scene when --obj is not given (instanced: "
+                        "49 instances of two meshes over a ground slab, "
+                        "traced through a two-level BVH)")
     p.add_argument("--scene-tris", type=int, default=100_000,
                    help="approximate triangle count for procedural scenes")
     p.add_argument("--width", type=int, default=1024)
@@ -82,15 +86,15 @@ _NOT_PORTED = {
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.obj is None and args.scene == "instanced" and args.env_map:
+        raise ValueError(
+            "--scene instanced is not combinable with --env-map (set "
+            "env_map on a member Scene or flatten the instances)")
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag) not in (None, False, 0.0):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: {what} is not ported to "
                 "sfvp_tpu_torch yet")
-    if args.obj is None and args.scene == "instanced":
-        raise NotImplementedError(
-            "--scene instanced: instancing is not ported to sfvp_tpu_torch "
-            "yet (ROADMAP.md A.14)")
     cfg = RenderConfig(
         width=args.width,
         height=args.height,
@@ -109,10 +113,16 @@ def main(argv=None) -> int:
     else:
         scene, cfg = procedural_scene(args.scene, args.scene_tris, cfg)
     r = Renderer(cfg, scene, args.device)
-    if r.wide is not None and not args.quiet:
+    if not args.quiet and r.wide is not None:
         print(f"set-up: wide BVH of {scene.num_triangles} triangles "
               f"({r.wide.nodes.shape[0]} nodes, {r.wide.tris.shape[0]} leaf "
               f"rows) built in {r.bvh_build_s:.3f} s", flush=True)
+    elif not args.quiet and r.tl is not None:
+        print(f"set-up: two-level BVH of {r.tl.num_instances} instances "
+              f"({r.buffers.num_tris} triangles flattened, "
+              f"{r.tl.nodes.shape[0]} nodes, {r.tl.tris.shape[0]} leaf rows, "
+              f"max_stack {r.tl.max_stack}) built in {r.bvh_build_s:.3f} s",
+              flush=True)
     if args.resume and args.checkpoint:
         r.resume(args.checkpoint)
     r.run(
@@ -129,16 +139,20 @@ def main(argv=None) -> int:
 
 
 def procedural_scene(name: str, n_tris: int, cfg: RenderConfig):
-    """The procedural scene ``name`` of about ``n_tris`` triangles, with
-    sfvp_tpu's CLI sizing (cli.py:100-118), and ``cfg`` with its default
-    view and sky when the camera is the reference's (cli.py:119-139):
-    procedural scenes are y-up and the reference camera does not frame
-    them."""
-    from .scene.procedural import city_mesh, sphere_mesh, terrain_mesh
+    """The procedural scene ``name`` of about ``n_tris`` triangles (for
+    "instanced", a list of Instances of about that many triangles
+    flattened), with sfvp_tpu's CLI sizing (cli.py:100-118), and ``cfg``
+    with its default view and sky when the camera is the reference's
+    (cli.py:119-139): procedural scenes are y-up and the reference camera
+    does not frame them."""
+    from .scene.procedural import (
+        city_mesh, instanced_field, sphere_mesh, terrain_mesh)
 
     if name == "sphere":
         n = max(16, int(math.sqrt(n_tris / 2)))
         scene = sphere_mesh(n_lat=n, n_lon=n, bump=0.3)
+    elif name == "instanced":
+        scene = instanced_field(n_tris=n_tris)
     elif name == "city":
         # ~12 subdivided faces per building; solve for the count
         sub = 9
@@ -153,6 +167,10 @@ def procedural_scene(name: str, n_tris: int, cfg: RenderConfig):
             cam = CameraConfig.look_at(
                 origin=(13.0, 9.0, 13.0), target=(0.0, 0.8, 0.0),
                 fov_y_deg=55.0)
+        elif name == "instanced":
+            cam = CameraConfig.look_at(
+                origin=(10.5, 7.5, 10.5), target=(0.0, 0.6, 0.0),
+                fov_y_deg=50.0)
         else:
             cam = CameraConfig.look_at(
                 origin=(0.0, 2.2, 5.0), target=(0.0, 0.0, 0.0),

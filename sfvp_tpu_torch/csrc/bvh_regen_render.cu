@@ -1,6 +1,7 @@
-// K5: path tracer with in-thread sample regeneration over the 8-wide BVH.
+// K5 and K9: path tracer with in-thread sample regeneration over the 8-wide
+// BVH (K5) or over the two-level BVH of an instanced scene (K9).
 //
-// Replaces sfvp_tpu/kernels/megakernel_bvh.py, make_bvh_regen_render_step
+// K5 replaces sfvp_tpu/kernels/megakernel_bvh.py, make_bvh_regen_render_step
 // (single-level kernel built in build_kernel, pallas_call at :2326), for
 // the slice the port runs: diffuse and mirror materials, uniform or cosine
 // sampling, Russian roulette with a roulette number drawn at every bounce
@@ -16,20 +17,69 @@
 // its global coordinates, so the TPU kernel's tile swizzle changes nothing
 // here.
 //
+// K9 replaces the same function with ``tl=`` (megakernel_bvh.py:52,
+// pallas_call at :2326; two-level code at :111-183, :742-1267, the shadow
+// walk at :1447-1707, the deferred world transform at :1327-1350): the same
+// kernel over the two-level walks of two_level.cuh, the closest hit shaded
+// from its world-space vertices (tl_surface) and the shadow rays through
+// the two-level any-hit walk. Lights and materials for NEE come from the
+// flattened scene's light table, as the TPU kernel's do. The TPU kernel's
+// appended identity instance row (megakernel_bvh.py:136-146) only spares
+// its vector selects; here a world-space entry takes the ray as it is.
+//
 // What bounds it on an H100: the traversal, as for K3 (dependent node and
 // leaf loads from an L2-resident tree, warp divergence), plus the
-// shading arithmetic per segment. Device-memory traffic of its own is 16
-// bytes per pixel. What the simple design does about it: a thread that
-// ends a path starts the next sample at once, so no lane waits for a
-// wave's longest path; there is no per-bounce relaunch, sort or payload
-// round trip through device memory, which the wavefront route (K3) pays.
-#include "wide_bvh.cuh"
+// shading arithmetic per segment; K9 adds the instance pops and the
+// object-space rays. Device-memory traffic of its own is 16 bytes per
+// pixel. What the simple design does about it: a thread that ends a path
+// starts the next sample at once, so no lane waits for a wave's longest
+// path; there is no per-bounce relaunch, sort or payload round trip
+// through device memory, which the wavefront route (K3, K7) pays.
+#include "two_level.cuh"
 
 namespace sfvp {
 
-template <bool HAS_MIRRORS, bool NEE>
+// The walks of the single-level tree (K5).
+struct WideWalk {
+  Wide w;
+  __device__ __forceinline__ bool closest(const Path& q, float tmax,
+                                          float& t, Surface& f) const {
+    const WideHit h =
+        wide_closest_hit(w, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, tmax);
+    if (h.row < 0) return false;
+    t = h.t;
+    f = wide_surface(w, h);
+    return true;
+  }
+  __device__ __forceinline__ bool occluded(float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float smax) const {
+    return wide_any_hit(w, ox, oy, oz, dx, dy, dz, smax);
+  }
+};
+
+// The walks of the two-level tree (K9).
+struct TwoLevelWalk {
+  TwoLevel g;
+  __device__ __forceinline__ bool closest(const Path& q, float tmax,
+                                          float& t, Surface& f) const {
+    const TwoLevelHit h =
+        two_level_closest_hit(g, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, tmax);
+    if (h.row < 0) return false;
+    t = h.t;
+    f = tl_surface(g, h);
+    return true;
+  }
+  __device__ __forceinline__ bool occluded(float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float smax) const {
+    return two_level_any_hit(g, ox, oy, oz, dx, dy, dz, smax);
+  }
+};
+
+template <class Walk, bool HAS_MIRRORS, bool NEE>
 __global__ void __launch_bounds__(kBlock)
-bvh_regen_kernel(const Wide w, const float* __restrict__ lights,
+bvh_regen_kernel(const Walk walk, const float* __restrict__ lights,
                  const Params p, float* __restrict__ colr,
                  float* __restrict__ colg, float* __restrict__ colb,
                  int* __restrict__ segs_out) {
@@ -43,18 +93,17 @@ bvh_regen_kernel(const Wide w, const float* __restrict__ lights,
     Path q = camera_path(px, py, s, p);
     for (int depth = 0; depth < p.max_depth; ++depth) {
       ++segs;
-      const WideHit h =
-          wide_closest_hit(w, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, p.t_max);
-      if (h.row < 0) {
+      float t;
+      Surface f;
+      if (!walk.closest(q, p.t_max, t, f)) {
         add_sky(p, q, cr, cg, cb);
         break;
       }
-      const Surface f = wide_surface(w, h);
       if (!shade_hit<HAS_MIRRORS, NEE, true>(
-              p, lights, depth, h.t, f, q, cr, cg, cb,
+              p, lights, depth, t, f, q, cr, cg, cb,
               [&](float ox, float oy, float oz, float dx, float dy, float dz,
                   float smax) {
-                return wide_any_hit(w, ox, oy, oz, dx, dy, dz, smax);
+                return walk.occluded(ox, oy, oz, dx, dy, dz, smax);
               }))
         break;
     }
@@ -69,31 +118,51 @@ bvh_regen_kernel(const Wide w, const float* __restrict__ lights,
 
 namespace {
 
-template <bool HAS_MIRRORS, bool NEE>
-int launch(const sfvp::Wide* w, const float* lights, const sfvp::Params* p,
+template <class Walk, bool HAS_MIRRORS, bool NEE>
+int launch(const Walk& walk, const float* lights, const sfvp::Params* p,
            float* colr, float* colg, float* colb, int* segs,
            cudaStream_t st) {
   const int blocks = (p->npix + sfvp::kBlock - 1) / sfvp::kBlock;
-  sfvp::bvh_regen_kernel<HAS_MIRRORS, NEE><<<blocks, sfvp::kBlock, 0, st>>>(
-      *w, lights, *p, colr, colg, colb, segs);
+  sfvp::bvh_regen_kernel<Walk, HAS_MIRRORS, NEE>
+      <<<blocks, sfvp::kBlock, 0, st>>>(walk, lights, *p, colr, colg, colb,
+                                         segs);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Walk>
+int launch_any(const Walk& walk, const float* lights, const sfvp::Params* p,
+               int has_mirrors, float* colr, float* colg, float* colb,
+               int* segs, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p->use_nee)
+    return has_mirrors ? launch<Walk, true, true>(walk, lights, p, colr, colg,
+                                                  colb, segs, st)
+                       : launch<Walk, false, true>(walk, lights, p, colr,
+                                                   colg, colb, segs, st);
+  return has_mirrors ? launch<Walk, true, false>(walk, lights, p, colr, colg,
+                                                 colb, segs, st)
+                     : launch<Walk, false, false>(walk, lights, p, colr, colg,
+                                                  colb, segs, st);
 }
 
 }  // namespace
 
 // lights: the (16, p->num_lights) light table when p->use_nee, else
-// unused. Outputs are per pixel (p->npix each); returns cudaGetLastError()
-// of the launch on ``stream``.
+// unused. Outputs are per pixel (p->npix each); each returns
+// cudaGetLastError() of the launch on ``stream``.
 extern "C" int sfvp_bvh_regen_render(const sfvp::Wide* w, const float* lights,
                                      const sfvp::Params* p, int has_mirrors,
                                      float* colr, float* colg, float* colb,
                                      int* segs, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p->use_nee)
-    return has_mirrors
-               ? launch<true, true>(w, lights, p, colr, colg, colb, segs, st)
-               : launch<false, true>(w, lights, p, colr, colg, colb, segs, st);
-  return has_mirrors
-             ? launch<true, false>(w, lights, p, colr, colg, colb, segs, st)
-             : launch<false, false>(w, lights, p, colr, colg, colb, segs, st);
+  return launch_any(sfvp::WideWalk{*w}, lights, p, has_mirrors, colr, colg,
+                    colb, segs, stream);
+}
+
+extern "C" int sfvp_tlas_regen_render(const sfvp::TwoLevel* g,
+                                      const float* lights,
+                                      const sfvp::Params* p, int has_mirrors,
+                                      float* colr, float* colg, float* colb,
+                                      int* segs, void* stream) {
+  return launch_any(sfvp::TwoLevelWalk{*g}, lights, p, has_mirrors, colr,
+                    colg, colb, segs, stream);
 }

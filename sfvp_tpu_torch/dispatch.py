@@ -1,7 +1,8 @@
 """Backend dispatch: the render step for a config and scene.
 
 The port runs the brute-force and single-level BVH routes of
-sfvp_tpu.dispatch.select_render_step (dispatch.py:236-364):
+sfvp_tpu.dispatch.select_render_step (dispatch.py:236-364), and the
+instanced routes of select_instanced_render_step (dispatch.py:373-531):
 
   - brute (``traversal="brute"``, or "auto" up to brute_force_max_tris
     triangles): K1 (kernels/megakernel_regen.py) by default, K2
@@ -15,12 +16,21 @@ sfvp_tpu.dispatch.select_render_step (dispatch.py:236-364):
     (integrate/wavefront.py) over the payload trace K3 and, with
     ``cfg.use_nee``, the any-hit trace K4 for its shadow rays
     (kernels/bvh_packet.py), with the per-bounce ray sort when
-    ``cfg.sort_bounce_rays`` is on.
+    ``cfg.sort_bounce_rays`` is on;
+  - instanced (a list of accel.instances.Instance): the two-level BVH
+    (accel/tlas.py) traced by K9 (kernels/megakernel_bvh.py with ``tl=``)
+    by default, or with ``megakernel_regen=False`` by the wavefront loop
+    over the two-level payload trace K7 and, with ``cfg.use_nee``, the
+    two-level any-hit trace K8 (kernels/bvh_tlas.py); materials and
+    lights come from the flattened scene's buffers.
 
 The TPU's VMEM gates have no meaning on the GPU (ROADMAP.md A.19): every
 scene lives in device memory, and so does the light table, so any number
 of lights stays on the fused kernels (sfvp_tpu sends more than
-MAX_KERNEL_LIGHTS = 16384 to its wavefront loop, dispatch.py:149-159). The scene's device picks the implementation
+MAX_KERNEL_LIGHTS = 16384 to its wavefront loop, dispatch.py:149-159), and
+no instanced scene leaves K9 for want of on-chip memory
+(``_instanced_fused_blockers``, dispatch.py:422-479, is not ported). The
+scene's device picks the implementation
 inside each kernel wrapper: a CUDA tensor runs the hand-written kernel, a
 CPU tensor its plain PyTorch twin. A config outside the ported slice
 raises NotImplementedError naming its ROADMAP.md item; nothing falls back
@@ -103,3 +113,48 @@ def select_render_step(cfg: RenderConfig, buffers,
 
     _dbg("megakernel(chunked parity)", tris=t, device=dev)
     return make_wave_render_step(cfg, buffers, global_shape=global_shape)
+
+
+def instanced_wavefront_kwargs(cfg: RenderConfig, dt) -> dict:
+    """make_render_step kwargs of the instanced wavefront loop over the
+    device two-level BVH ``dt`` (kernels/bvh_tlas.device_two_level): K7
+    as the payload trace and, with ``cfg.use_nee``, K8 as the shadow
+    trace, as sfvp_tpu's instanced_wavefront_kwargs on its pallas
+    backend."""
+    from .kernels.bvh_tlas import make_two_level_occlusion, make_two_level_trace
+
+    return {
+        "trace_payload_fn": make_two_level_trace(dt, t_min=cfg.t_min),
+        "occlusion_fn": (make_two_level_occlusion(dt, t_min=cfg.t_min)
+                         if cfg.use_nee else None),
+    }
+
+
+def select_instanced_render_step(cfg: RenderConfig, flat_buffers, tl,
+                                 global_shape: Optional[tuple] = None
+                                 ) -> Callable:
+    """The render step of an instanced scene: ``flat_buffers`` the
+    flattened scene's buffers on the render device
+    (accel.instances.flatten_instances, for materials and lights), ``tl``
+    its host TwoLevelBVH (accel.tlas.build_two_level); the Renderer builds
+    both once at set-up. K9 by default, the wavefront loop over K7 (and K8
+    under NEE) with ``megakernel_regen=False``. The config is checked on
+    the flattened buffers, so the features of later slices still raise."""
+    require_slice(cfg, flat_buffers)
+    from .kernels.bvh_tlas import device_two_level
+
+    dev = flat_buffers.device
+    dt = device_two_level(tl, dev)
+    why = dict(instances=tl.num_instances, tris=flat_buffers.num_tris,
+               nodes=int(tl.nodes.shape[0]), device=dev)
+    if cfg.megakernel_regen:
+        from .kernels.megakernel_bvh import make_bvh_regen_render_step
+
+        _dbg("megakernel_bvh(fused two-level regen)", **why)
+        return make_bvh_regen_render_step(cfg, flat_buffers, tl=dt,
+                                          global_shape=global_shape)
+    from .integrate.wavefront import make_render_step
+
+    _dbg("wavefront(tlas packet)", nee=cfg.use_nee, **why)
+    return make_render_step(cfg, flat_buffers, global_shape=global_shape,
+                            **instanced_wavefront_kwargs(cfg, dt))

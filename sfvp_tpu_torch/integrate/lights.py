@@ -49,7 +49,7 @@ class LightTable(NamedTuple):
         return float(np.float32(1.0 / max(self.total_area, 1e-30)))
 
 
-def build_light_table(scene, device="cpu") -> Optional[LightTable]:
+def build_light_table(scene, device) -> Optional[LightTable]:
     """Collect emissive triangles from a host Scene onto ``device``; None
     if the scene has no area lights."""
     em = np.asarray(scene.face_emission, np.float32)

@@ -79,6 +79,17 @@ class WideParams(ctypes.Structure):
         (name, ctypes.c_float) for name in ("t_min", "det_eps")]
 
 
+class TwoLevelParams(ctypes.Structure):
+    """Mirror of ``sfvp::TwoLevel`` in csrc/two_level.cuh, field for
+    field."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "nodes", "tris", "inst")] + [
+        (name, ctypes.c_int) for name in (
+            "n_nodes", "n_leaf_rows", "n_inst", "max_stack")] + [
+        (name, ctypes.c_float) for name in ("t_min", "det_eps")]
+
+
 def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
                 npix: int, num_tris: int, tp: int, chunk_idx: int = 0,
                 lights=None) -> Params:
@@ -190,15 +201,21 @@ def library() -> ctypes.CDLL:
     lib.sfvp_regen_render.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(Params),
         ctypes.c_int, *outs]
-    lib.sfvp_bvh_regen_render.argtypes = [
-        ctypes.POINTER(WideParams), ctypes.c_void_p, ctypes.POINTER(Params),
-        ctypes.c_int, *outs]
-    for fn in (lib.sfvp_bvh_trace, lib.sfvp_bvh_occlusion):
-        fn.argtypes = [ctypes.POINTER(WideParams), ctypes.c_void_p,
+    # K5 and K9 differ in their tree: the wide BVH or the two-level one
+    for fn, tree in ((lib.sfvp_bvh_regen_render, WideParams),
+                     (lib.sfvp_tlas_regen_render, TwoLevelParams)):
+        fn.argtypes = [ctypes.POINTER(tree), ctypes.c_void_p,
+                       ctypes.POINTER(Params), ctypes.c_int, *outs]
+    for fn, tree in ((lib.sfvp_bvh_trace, WideParams),
+                     (lib.sfvp_bvh_occlusion, WideParams),
+                     (lib.sfvp_tlas_trace, TwoLevelParams),
+                     (lib.sfvp_tlas_occlusion, TwoLevelParams)):
+        fn.argtypes = [ctypes.POINTER(tree), ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     for fn in (lib.sfvp_wave_render, lib.sfvp_regen_render,
-               lib.sfvp_bvh_regen_render, lib.sfvp_bvh_trace,
-               lib.sfvp_bvh_occlusion):
+               lib.sfvp_bvh_regen_render, lib.sfvp_tlas_regen_render,
+               lib.sfvp_bvh_trace, lib.sfvp_bvh_occlusion,
+               lib.sfvp_tlas_trace, lib.sfvp_tlas_occlusion):
         fn.restype = ctypes.c_int
     return lib
 
@@ -207,10 +224,10 @@ def launch(fn_name: str, scene, params: Params, has_mirrors: bool,
            n_out: int, lights=None):
     """Launch one render kernel of the library on the current stream of
     the scene's device; ``scene`` is the brute-force table tensor (K1, K2)
-    or the WideParams of a device BVH (K5). K1 and K5 take ``lights``, the
-    (16, L) light table (``check_lights``) when ``params.use_nee``.
-    Allocates and returns (colr, colg, colb, segs)."""
-    if isinstance(scene, WideParams):
+    or the WideParams / TwoLevelParams of a device tree (K5, K9). K1, K5
+    and K9 take ``lights``, the (16, L) light table (``check_lights``) when
+    ``params.use_nee``. Allocates and returns (colr, colg, colb, segs)."""
+    if isinstance(scene, (WideParams, TwoLevelParams)):
         device, scene_arg = scene.device, ctypes.byref(scene)
     else:
         device, scene_arg = scene.device, scene.data_ptr()
@@ -229,10 +246,11 @@ def launch(fn_name: str, scene, params: Params, has_mirrors: bool,
     return (*outs, segs)
 
 
-def _launch_wave(fn_name: str, wp: "WideParams", rays, out):
-    """Launch a per-ray BVH kernel (K3, K4) over the (7, N) ray planes
-    into ``out`` on the current stream of the rays' device. N goes to the
-    kernel as a C int, so a wave holds fewer than 2**31 rays."""
+def _launch_wave(fn_name: str, wp, rays, out):
+    """Launch a per-ray BVH kernel (K3, K4 with WideParams; K7, K8 with
+    TwoLevelParams) over the (7, N) ray planes into ``out`` on the current
+    stream of the rays' device. N goes to the kernel as a C int, so a wave
+    holds fewer than 2**31 rays."""
     n = rays.shape[1]
     if n >= MAX_WAVE_RAYS:
         raise ValueError(f"a wave holds fewer than {MAX_WAVE_RAYS} rays "
@@ -257,39 +275,77 @@ def launch_bvh_occlusion(wp: "WideParams", rays):
         rays.shape[1], dtype=torch.bool, device=rays.device))
 
 
+def launch_tlas_trace(tp: "TwoLevelParams", rays):
+    """K7: (7, N) world-space ray planes in, (19, N) payload planes out."""
+    return _launch_wave("sfvp_tlas_trace", tp, rays, torch.empty(
+        (19, rays.shape[1]), dtype=torch.float32, device=rays.device))
+
+
+def launch_tlas_occlusion(tp: "TwoLevelParams", rays):
+    """K8: (7, N) world-space ray planes in, (N,) bool out."""
+    return _launch_wave("sfvp_tlas_occlusion", tp, rays, torch.empty(
+        rays.shape[1], dtype=torch.bool, device=rays.device))
+
+
 def check_launch(fn_name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
 
 
-def wide_params(dw, t_min: float) -> WideParams:
-    """WideParams of a device BVH (kernels/bvh_packet.py DeviceWide) on a
-    CUDA device, after checking what the BVH kernels take: contiguous
-    float32 (rows, 128) tables, fewer than 2**24 rows (refs are float32),
-    max_stack within the kernels' stack. ``.device`` rides along for the
-    launch."""
-    if dw.max_stack > MAX_WIDE_STACK:
+def _check_tables(what: str, max_stack: int, tables) -> None:
+    """What the BVH kernels take: contiguous float32 (rows, 128) tables on
+    a CUDA device, fewer than 2**24 rows each (refs are float32),
+    max_stack within the kernels' stack."""
+    if max_stack > MAX_WIDE_STACK:
         raise ValueError(
-            f"wide BVH max_stack {dw.max_stack} exceeds the kernels' "
+            f"{what} max_stack {max_stack} exceeds the kernels' "
             f"traversal stack of {MAX_WIDE_STACK} entries")
-    for name, t in (("nodes", dw.nodes), ("tris", dw.tris)):
+    for name, t in tables:
         if t.shape[0] >= MAX_WIDE_ROWS:
-            raise ValueError(f"wide BVH {name} has {t.shape[0]} rows; refs "
+            raise ValueError(f"{what} {name} has {t.shape[0]} rows; refs "
                              f"are float32, exact below {MAX_WIDE_ROWS}")
         if t.device.type != "cuda":
             raise ValueError(f"the CUDA kernels take a CUDA tensor, got "
                              f"{name} on {t.device}")
         if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 128
                 or not t.is_contiguous()):
-            raise ValueError(f"wide BVH {name} must be a contiguous float32 "
+            raise ValueError(f"{what} {name} must be a contiguous float32 "
                              f"(rows, 128) tensor, got {t.dtype} "
                              f"{tuple(t.shape)}")
+
+
+def wide_params(dw, t_min: float) -> WideParams:
+    """WideParams of a device BVH (kernels/bvh_packet.py DeviceWide) on a
+    CUDA device, after ``_check_tables``. ``.device`` rides along for the
+    launch."""
+    _check_tables("wide BVH", dw.max_stack,
+                  (("nodes", dw.nodes), ("tris", dw.tris)))
     wp = WideParams(nodes=dw.nodes.data_ptr(), tris=dw.tris.data_ptr(),
                     n_nodes=dw.nodes.shape[0], n_leaf_rows=dw.tris.shape[0],
                     max_stack=dw.max_stack, t_min=f32(t_min),
                     det_eps=_DET_EPS)
     wp.device = dw.nodes.device
     return wp
+
+
+def two_level_params(dt, t_min: float) -> TwoLevelParams:
+    """TwoLevelParams of a device two-level BVH (kernels/bvh_tlas.py
+    DeviceTwoLevel) on a CUDA device, after ``_check_tables`` on its node,
+    leaf and instance tables. The 2**24 row cap also keeps every leaf-row
+    code -(row + 1) above the instance codes -(2**27 + id + 1)."""
+    if dt.inst.shape[0] != dt.num_instances:
+        raise ValueError(f"two-level BVH has {dt.inst.shape[0]} instance "
+                         f"rows for {dt.num_instances} instances")
+    _check_tables("two-level BVH", dt.max_stack,
+                  (("nodes", dt.nodes), ("tris", dt.tris),
+                   ("inst", dt.inst)))
+    tp = TwoLevelParams(
+        nodes=dt.nodes.data_ptr(), tris=dt.tris.data_ptr(),
+        inst=dt.inst.data_ptr(), n_nodes=dt.nodes.shape[0],
+        n_leaf_rows=dt.tris.shape[0], n_inst=dt.inst.shape[0],
+        max_stack=dt.max_stack, t_min=f32(t_min), det_eps=_DET_EPS)
+    tp.device = dt.nodes.device
+    return tp
 
 
 def check_lights(rows, device) -> None:

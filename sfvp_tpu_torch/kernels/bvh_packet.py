@@ -48,6 +48,10 @@ NET_LAYERS = (
     ((3, 4),),
 )
 N_PAYLOAD = 19
+# stack code of a TLAS leaf, -(INSTANCE_CODE_BASE + instance id + 1)
+# (sfvp_tpu/kernels/bvh_tlas.py _IB): below every leaf-row code, since
+# rows stay under build.MAX_WIDE_ROWS = 2**24
+INSTANCE_CODE_BASE = 1 << 27
 
 
 class Payload(NamedTuple):
@@ -136,7 +140,9 @@ def _leaf_tests(tris, rows, ray, bt):
 def _node_children(nodes, node_idx, ray, bt, t_min, ordered=True):
     """Slab tests of rays against the 8 children of their nodes; returns
     the (M, 8) child codes to push, far to near (0 = no push); in slot
-    order when not ``ordered`` (an any-hit walk)."""
+    order when not ``ordered`` (an any-hit walk). A child tagged as an
+    instance (accel/tlas.py TAG_INSTANCE, only in a two-level TLAS) gets
+    its instance code."""
     ox, oy, oz = (c[:, None] for c in ray[:3])
     ivx, ivy, ivz = (c[:, None] for c in ray.inv)
     f = nodes[node_idx, :64].view(-1, 8, 8)  # (M, field, child)
@@ -155,8 +161,9 @@ def _node_children(nodes, node_idx, ray, bt, t_min, ordered=True):
         torch.minimum(torch.maximum(tz0, tz1), limit))
     ref = f[:, 6].to(torch.int64)
     tag = f[:, 7]
-    code = torch.where(tag > 1.5, -(ref + 1),
-                       torch.where(tag > 0.5, ref + 1, 0))
+    code = torch.where(
+        tag > 2.5, -(INSTANCE_CODE_BASE + ref + 1),
+        torch.where(tag > 1.5, -(ref + 1), torch.where(tag > 0.5, ref + 1, 0)))
     push = (code != 0) & (tnear <= tfar)
     key = torch.where(push, tnear, float("-inf"))
     code = torch.where(push, code, 0)
@@ -185,19 +192,25 @@ class _Rays(tuple):
         return r
 
 
-def _push(stack, sp, ni, child):
-    """Push each ray's (8,) child codes (0 = none) in slot order."""
+def _push(stack, sp, ni, child, ctx_stack=None, ctx=None):
+    """Push each ray's (8,) child codes (0 = none) in slot order; with
+    ``ctx_stack``, each beside its ray's (M,) instance context ``ctx``."""
     pushed = child != 0
     pos = sp[ni][:, None] + torch.cumsum(pushed, dim=1) - 1
     rows = ni[:, None].expand(-1, 8)
     stack[rows[pushed], pos[pushed]] = child[pushed]
+    if ctx_stack is not None:
+        ctx_stack[rows[pushed], pos[pushed]] = ctx[:, None].expand(
+            -1, 8)[pushed]
     sp[ni] += pushed.sum(dim=1)
 
 
-def _count(counts, ni, li):
+def _count(counts, ni, li, ii=None):
     if counts is not None:
         counts["node_pops"] = counts.get("node_pops", 0) + ni.numel()
         counts["leaf_pops"] = counts.get("leaf_pops", 0) + li.numel()
+        if ii is not None:
+            counts["inst_pops"] = counts.get("inst_pops", 0) + ii.numel()
 
 
 def _walk_setup(dw: DeviceWide, t_min: float, rays: torch.Tensor):

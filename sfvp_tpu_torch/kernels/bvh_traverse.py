@@ -45,11 +45,11 @@ def slab(bmin, bmax, o, inv, t_min, limit):
     return tnear, tfar
 
 
-def make_trace_bvh(bvh: BVH, device="cpu"):
-    """Returns ``trace(o, d, scene, t_min, t_max, active=None) -> Hit`` with
-    the interface of kernels.intersect.trace_brute. ``scene`` is accepted
-    for interface parity; geometry comes from the (sorted) BVH arrays and
-    hits report ORIGINAL primitive ids."""
+def make_trace_bvh(bvh: BVH, device):
+    """Returns ``trace(o, d, scene, t_min, t_max, active=None) -> Hit`` on
+    ``device``, with the interface of kernels.intersect.trace_brute.
+    ``scene`` is accepted for interface parity; geometry comes from the
+    (sorted) BVH arrays and hits report ORIGINAL primitive ids."""
 
     def dev(a, dtype=torch.float32):
         return torch.as_tensor(a, dtype=dtype, device=device)

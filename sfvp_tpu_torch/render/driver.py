@@ -52,28 +52,45 @@ class Renderer:
     state, so no caller sees the old one change. A scene on the BVH route
     gets its wide BVH (``self.wide``) built once at set-up, in
     ``self.bvh_build_s`` host seconds.
+
+    ``scene`` may also be a list of ``accel.instances.Instance``: the
+    renderer then shades from the flattened scene's buffers and builds its
+    two-level BVH (``self.tl``) once at set-up, in ``self.bvh_build_s``
+    (dispatch.select_instanced_render_step).
     """
 
-    def __init__(self, cfg: RenderConfig, scene: Scene, device):
-        from ..dispatch import resolve_traversal, select_render_step
+    def __init__(self, cfg: RenderConfig, scene, device):
+        from ..dispatch import (
+            resolve_traversal,
+            select_instanced_render_step,
+            select_render_step,
+        )
 
-        if isinstance(scene, (list, tuple)):
-            raise NotImplementedError(
-                "instanced scenes are not ported yet (ROADMAP.md A.14)")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.buffers = upload(scene, device=self.device)
-        # the wide BVH of a large scene, built once here on the host (the
-        # one place that builds it); select_render_step checks the config
-        self.wide = None
+        # the tree of a large or instanced scene, built once here on the
+        # host (the one place that builds it); dispatch checks the config
+        self.wide = self.tl = None
         self.bvh_build_s = 0.0
-        if resolve_traversal(cfg, self.buffers) == "bvh":
-            from ..accel.wide import build_wide_from_buffers
+        if isinstance(scene, (list, tuple)):
+            from ..accel.instances import flatten_instances
+            from ..accel.tlas import build_two_level
 
+            self.buffers = upload(flatten_instances(scene), device=self.device)
             t0 = time.perf_counter()
-            self.wide = build_wide_from_buffers(self.buffers)
+            self.tl = build_two_level(scene)
             self.bvh_build_s = time.perf_counter() - t0
-        self._step = select_render_step(cfg, self.buffers, wide=self.wide)
+            self._step = select_instanced_render_step(cfg, self.buffers,
+                                                      self.tl)
+        else:
+            self.buffers = upload(scene, device=self.device)
+            if resolve_traversal(cfg, self.buffers) == "bvh":
+                from ..accel.wide import build_wide_from_buffers
+
+                t0 = time.perf_counter()
+                self.wide = build_wide_from_buffers(self.buffers)
+                self.bvh_build_s = time.perf_counter() - t0
+            self._step = select_render_step(cfg, self.buffers, wide=self.wide)
         self.state = init_state(cfg.height, cfg.width, self.device)
 
     def resume(self, checkpoint_path: str) -> None:

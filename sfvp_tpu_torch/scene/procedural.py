@@ -1,8 +1,9 @@
 """Procedural high-poly test scenes (BASELINE configs 2-4: 100k and 500k
-spheres, terrain, the city), a copy of sfvp_tpu.scene.procedural: pure
-NumPy generators that return Scene objects byte-identical to the JAX
-package's (tests/test_torch_bvh_build.py), and an OBJ exporter.
-``instanced_field`` comes with instancing (ROADMAP.md A.14)."""
+spheres, terrain, the city; the instanced field of ``--scene
+instanced``), a copy of sfvp_tpu.scene.procedural: pure NumPy generators
+that return Scene objects (and Instance lists) byte-identical to the JAX
+package's (tests/test_torch_bvh_build.py, tests/test_torch_tlas.py), and
+an OBJ exporter."""
 
 from __future__ import annotations
 
@@ -191,6 +192,54 @@ def city_mesh(n_buildings: int = 100, subdiv: int = 9, size: float = 20.0,
         material_names=["city"],
         face_material_id=np.zeros((t,), np.int32),
     )
+
+
+def instanced_field(n_tris: int = 100_000, n_inst: int = 49,
+                    seed: int = 12) -> list:
+    """Demo instanced scene: ``n_inst`` rotated/scaled instances sharing
+    TWO displaced-sphere BLAS meshes over a ground slab — the general
+    form of the reference's TLAS-over-one-BLAS (ref main.cpp:521-538).
+    Returns a list of accel.instances.Instance for the instanced render
+    path (dispatch.select_instanced_render_step); ``n_tris`` counts the
+    FLATTENED total across instances."""
+    from ..accel.instances import Instance
+
+    g = np.random.default_rng(seed)
+    n = max(8, int(np.sqrt(max(n_tris, 1) / max(n_inst, 1) / 2.0)))
+    ball_a = sphere_mesh(n_lat=n, n_lon=n, bump=0.25)
+    ball_a.face_diffuse[:] = (0.75, 0.35, 0.25)
+    ball_b = sphere_mesh(n_lat=n, n_lon=n, bump=0.1)
+    ball_b.face_diffuse[:] = (0.3, 0.45, 0.8)
+    big = 40.0
+    ground = Scene(
+        vertices=np.asarray([
+            [-big, 0, -big], [big, 0, -big], [big, 0, big],
+            [-big, 0, -big], [big, 0, big], [-big, 0, big],
+        ], np.float32),
+        indices=np.arange(6, dtype=np.uint32),
+        face_diffuse=np.full((2, 3), 0.55, np.float32),
+        face_emission=np.zeros((2, 3), np.float32),
+    )
+    insts = [Instance(
+        scene=ground,
+        transform=np.hstack([np.eye(3, dtype=np.float32),
+                             np.zeros((3, 1), np.float32)]))]
+    cols = max(2, int(np.sqrt(n_inst)))
+    span = float(cols - 1)
+    for i in range(n_inst):
+        ang = g.uniform(0, 2 * np.pi)
+        c, sn = np.cos(ang), np.sin(ang)
+        rot = np.asarray([[c, 0, sn], [0, 1, 0], [-sn, 0, c]], np.float32)
+        sc = float(g.uniform(0.5, 1.1))
+        tr = np.asarray([
+            (-span / 2 + (i % cols)) * 2.0, sc,
+            (-span / 2 + (i // cols)) * 2.0,
+        ], np.float32)
+        insts.append(Instance(
+            scene=ball_a if i % 2 == 0 else ball_b,
+            transform=np.hstack([(rot * sc), tr[:, None]]).astype(
+                np.float32)))
+    return insts
 
 
 def save_obj(scene: Scene, path: str) -> None:

@@ -173,7 +173,8 @@ def test_port_threaded_bvh_matches_port_brute(scene):
     tb = scene["tb"]
     act = torch.from_numpy(np.random.default_rng(2).uniform(size=1024) > 0.2)
     ref = trace_brute(_cols(o), _cols(d), tb, T_MIN, 1e4, active=act)
-    hit = make_trace_bvh(bvh_from_arrays(scene["tris"], leaf_size=4))(
+    hit = make_trace_bvh(bvh_from_arrays(scene["tris"], leaf_size=4),
+                         "cpu")(
         _cols(o), _cols(d), tb, T_MIN, 1e4, active=act)
     assert torch.equal(hit.prim, ref.prim)
     fin = torch.isfinite(ref.t)
@@ -185,7 +186,8 @@ def test_port_threaded_bvh_matches_port_brute(scene):
 def test_twin_matches_port_threaded_bvh(scene):
     o, d = _rays(1024, seed=13, spread=scene["spread"])
     tb = scene["tb"]
-    ref = make_trace_bvh(bvh_from_arrays(scene["tris"], leaf_size=4))(
+    ref = make_trace_bvh(bvh_from_arrays(scene["tris"], leaf_size=4),
+                         "cpu")(
         _cols(o), _cols(d), tb, T_MIN, 1e4)
     got = packet_trace_plain(device_wide(scene["tw"], "cpu"), T_MIN,
                              ray_planes(_cols(o), _cols(d), 1e4))

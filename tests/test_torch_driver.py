@@ -2,6 +2,7 @@
 including checkpoints carried across packages in both directions.
 Image tolerances as in test_torch_integrator.py."""
 
+import dataclasses
 import json
 import os
 import struct
@@ -135,7 +136,9 @@ def test_cli_writes_png(tmp_path):
     ["--focus-dist", "3.0"], ["--dist"], ["--adaptive", "0.5"],
     # procedural scenes render now; an unported feature on one still raises
     ["--nee", "--lens-radius", "0.1", "--scene", "sphere"],
-    ["--scene", "instanced"]], ids=lambda f: f[-1] if len(f) > 1 else f[0])
+    # and so does the instanced scene (tests/test_torch_instances.py)
+    ["--lens-radius", "0.1", "--scene", "instanced"]],
+    ids=lambda f: f[-1] if len(f) > 1 else f[0])
 def test_cli_out_of_slice_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(["--device", "cpu", "--width", "8", "--height", "8",
@@ -145,5 +148,14 @@ def test_cli_out_of_slice_flags_raise(flags, tmp_path):
 
 
 def test_renderer_refuses_instances():
-    with pytest.raises(NotImplementedError, match="A.14"):
-        T.Renderer(T.RenderConfig(**KW), [T.load_obj()], "cpu")
+    """Instances render now (tests/test_torch_instances.py); the Renderer
+    takes no trace_fn, and refuses a feature not ported yet on them."""
+    from sfvp_tpu_torch.accel.instances import Instance
+    from sfvp_tpu_torch.kernels.intersect import trace_brute
+
+    insts = [Instance(scene=T.load_obj())]
+    with pytest.raises(TypeError, match="trace_fn"):
+        T.Renderer(T.RenderConfig(**KW), insts, "cpu", trace_fn=trace_brute)
+    dof = dataclasses.replace(T.CameraConfig(), lens_radius=0.1)
+    with pytest.raises(NotImplementedError, match="A.12"):
+        T.Renderer(T.RenderConfig(**KW, camera=dof), insts, "cpu")

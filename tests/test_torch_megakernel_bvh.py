@@ -206,10 +206,15 @@ def test_k5_refuses_non_cuda_device_and_oversized_stack():
 
 
 def test_k5_two_level_raises():
+    """The step traces one tree: the wide BVH (K5) or, since the two-level
+    kernel K9 renders (tests/test_torch_tlas.py), the two-level one; both
+    or neither raises."""
     _, tb, _, tw, _ = scene("cornell")
-    with pytest.raises(NotImplementedError, match="A.14"):
+    with pytest.raises(ValueError, match="one tree"):
         make_bvh_regen_render_step(T.RenderConfig(**BASE), tb,
                                    device_wide(tw, "cpu"), tl=object())
+    with pytest.raises(ValueError, match="one tree"):
+        make_bvh_regen_render_step(T.RenderConfig(**BASE), tb)
 
 
 @pytest.mark.parametrize("kw,route", [
@@ -314,8 +319,15 @@ def test_cli_scene_sizing_and_view_match_jax_cli():
 
 
 def test_cli_instanced_still_raises():
-    with pytest.raises(NotImplementedError, match="A.14"):
-        cli.main(["--device", "cpu", "--scene", "instanced"])
+    """--scene instanced renders now (tests/test_torch_instances.py); with
+    an environment map it raises ValueError, as sfvp_tpu's CLI does, and
+    with an unported feature NotImplementedError naming its item."""
+    with pytest.raises(ValueError, match="env-map"):
+        cli.main(["--device", "cpu", "--scene", "instanced", "--env-map",
+                  "sky.hdr"])
+    with pytest.raises(NotImplementedError, match="A.12"):
+        cli.main(["--device", "cpu", "--scene", "instanced",
+                  "--lens-radius", "0.1"])
 
 
 def test_dispatch_debug_is_quiet_by_default(capsys, monkeypatch):
