@@ -5,7 +5,7 @@
 Phases, each of which raises (exit code 1, no result line) on failure:
   1. device   a CUDA device of compute capability 9.0 (Hopper), and the
               card's name and power limit from nvidia-smi;
-  2. build    nvcc builds the kernels K1-K5 and K7-K9 from
+  2. build    nvcc builds the kernels K1-K9 from
               sfvp_tpu_torch/csrc/, one nvcc per source in parallel;
   3. twins    each kernel against its plain PyTorch twin at 256x256,
               depth 8: parity at 8 spp, cosine + Russian roulette, and a
@@ -104,6 +104,43 @@ from the box and triangle tests (and instance pops) the twins do on the
 same inputs, and for K1's shadow rays from the tests its early-exit scan
 takes on them.
 
+Adaptive sampling and the streamed-scene trace (slice 5: the packet trace
+K6 with its leaf queue), on the 500k sphere of ``--scene sphere
+--scene-tris 500000`` (its 57.8 MB wide BVH is past sfvp_tpu's 13 MiB
+streaming threshold, so the wavefront loop traces it through K6) and on
+the city with ``stream_tris=True``:
+ 21. k6 twins    K6 against its twin on every plane of every ray: the
+                 swizzled 256x256 camera wave, a bounce wave, a random
+                 wave, the camera wave with a partial last packet and
+                 with an active mask, one run with a 2-entry leaf queue
+                 (the spill path), and the shadow wave of one NEE step on
+                 the city; K6 and K3 on the same triangle on at least
+                 99.99% of the camera and bounce rays;
+ 22. adaptive    at 256x256, 8 spp, depth 8, cosine + RR: the adaptive
+     cross       sampler's uniform step over K6 against the Renderer's
+                 wavefront step over K3; an adaptive step over K6 and one
+                 over K3 from one state (the same tiles); the city with NEE
+                 + MIS, uniform step, K6 for payload and shadows against K3
+                 + K4; each pair held to the kernel-vs-twin image bounds;
+ 23. adaptive    the CLI command ``--scene sphere --scene-tris 500000
+     main        --sampling cosine --rr --spp 8 --adaptive 0.25 --steps 6``
+                 at 1024x1024 (2 warmup and 4 adaptive steps, 64 K6
+                 launches each, no K3, K4 or K5), with its set-up seconds,
+                 step times and Mrays/s; one Renderer step with
+                 megakernel_regen=False (64 K6 launches, each call between
+                 CUDA events) and one with stream_tris=False too (64 K3
+                 launches: the route of that step before K6 was ported);
+                 two AdaptiveRenderer steps on the city with
+                 NEE + MIS + RR and stream_tris=True (K6 for payload and
+                 shadow rays, no K4);
+ 24. k6 times    K6 per launch on the 500k sphere's swizzled 1M-ray
+                 first-bounce wave, its third-bounce wave and a 262,144-ray
+                 adaptive wave (1024 tiles of 16x16), CUDA events, each
+                 beside K3 on the same wave and K6's twin; both held to
+                 the bound of the closest-hit work, from K3's twin's
+                 per-ray pops, with the bound of K6's own union walk
+                 printed beside it; K6 held to its twin on every ray.
+
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -181,6 +218,14 @@ K9_K5_REL_RMSE = 5e-3
 # 6 add, three safe reciprocals of 4 ops each), and a hit's 3 vertices go
 # to world space (3 x (9 mul + 9 add)), counted from csrc/two_level.cuh
 INST_OPS, WORLD_OPS = 45, 54
+# slice 5: the adaptive sampler (the CLI's defaults, tile 16, warmup 2) and
+# K6 on the 500k sphere, whose wide BVH sfvp_tpu streams; the cross-checks
+# at CROSS_SIZE^2 with BVH_SPP spp
+ADAPT_FRAC, ADAPT_TILE, ADAPT_WARMUP, ADAPT_STEPS = 0.25, 16, 2, 6
+CROSS_SIZE, CITY_ADAPT_STEPS = 256, 2
+ADAPT_CLI = ["--scene", "sphere", "--scene-tris", str(BIG_TRIS),
+             "--sampling", "cosine", "--rr", "--spp", str(BVH_SPP),
+             "--adaptive", str(ADAPT_FRAC), "--steps", str(ADAPT_STEPS)]
 
 
 def check(cond, msg):
@@ -574,14 +619,14 @@ def timed_calls(module, names, run):
 
 
 def capture_waves(cfg, s, calls, shadow=False):
-    """The (7, N) ray planes that the payload trace (K3, or K7 for an
-    instanced scene ``s``) or, with ``shadow``, the occlusion kernel (K4,
-    K8) receives at the given calls of one wavefront step of ``cfg`` (call
-    c = bounce c of the first sample)."""
+    """The (7, N) ray planes that the payload trace (K3, K6 on a streamed
+    scene, or K7 for an instanced scene ``s``) or, with ``shadow``, the
+    shadow trace (K4, K8, or K6 itself) receives at the given calls of one
+    wavefront step of ``cfg`` (call c = bounce c of the first sample)."""
     from sfvp_tpu_torch import init_state
     from sfvp_tpu_torch.dispatch import (
-        select_instanced_render_step, select_render_step)
-    from sfvp_tpu_torch.kernels import bvh_packet, bvh_tlas
+        select_instanced_render_step, select_render_step, stream_tris)
+    from sfvp_tpu_torch.kernels import bvh_packet, bvh_packet2, bvh_tlas
 
     cfg = dataclasses.replace(cfg, megakernel_regen=False)
     if "tl" in s:
@@ -594,6 +639,13 @@ def capture_waves(cfg, s, calls, shadow=False):
     def run():
         step(init_state(cfg.height, cfg.width, DEVICE))
 
+    if "tl" not in s and stream_tris(cfg, s["wide"]):
+        # K6 traces both through its ray_planes: under NEE call 2c is
+        # bounce c's payload trace and call 2c + 1 its shadow trace
+        if cfg.use_nee:
+            calls = tuple(2 * c + int(shadow) for c in calls)
+        return capture(bvh_packet2, "ray_planes", calls, run,
+                       lambda a, out: out)
     # the trace builds each call's planes with ray_planes: record those;
     # the occlusion hook passes its planes to the occlusion wrapper
     if shadow:
@@ -719,6 +771,7 @@ def k5_vs_k1_phase(nee=False):
 
 def counters():
     from sfvp_tpu_torch.kernels.bvh_packet import packet_occlusion, packet_trace
+    from sfvp_tpu_torch.kernels.bvh_packet2 import packet_trace2
     from sfvp_tpu_torch.kernels.bvh_tlas import (
         two_level_occlusion, two_level_trace)
     from sfvp_tpu_torch.kernels.megakernel import wave_render
@@ -728,7 +781,8 @@ def counters():
 
     return {"K1": regen_render, "K2": wave_render, "K3": packet_trace,
             "K4": packet_occlusion, "K5": bvh_regen_render,
-            "K7": two_level_trace, "K8": two_level_occlusion,
+            "K6": packet_trace2, "K7": two_level_trace,
+            "K8": two_level_occlusion,
             "K9": tlas_regen_render}
 
 
@@ -892,7 +946,8 @@ def big_sphere_phase(sphere):
     200k triangles) at the size the main path renders it, held against its
     twin; and K5 per pixel and per segment on the 500k and the 100k trees
     at that size, beside each tree's pops per segment. Returns K5's
-    largest absolute difference on the 500k tree."""
+    largest absolute difference on the 500k tree, and the 500k sphere's
+    set-up (scene_setup), which slice 5's phases trace through K6."""
     from sfvp_tpu_torch.kernels.megakernel_bvh import (
         bvh_regen_render, bvh_regen_render_plain)
 
@@ -919,7 +974,7 @@ def big_sphere_phase(sphere):
               f"{plain:.1f} ms; {segs} segments, "
               f"{counts['node_pops'] / segs:.3f} node and "
               f"{counts['leaf_pops'] / segs:.3f} leaf pops per segment")
-    return worst
+    return worst, big
 
 
 def sort_phase(sphere):
@@ -1518,6 +1573,297 @@ def tlas_timing_phase(field, lit):
     return times, worst
 
 
+def same_triangle(a, b):
+    """The share of rays whose two payloads name the same triangle (or
+    both miss)."""
+    miss_a, miss_b = torch.isinf(a[0]), torch.isinf(b[0])
+    same = (miss_a & miss_b) | (~miss_a & ~miss_b & (a[3:] == b[3:]).all(0))
+    return float(same.float().mean())
+
+
+def compare_k6(label, dw, t_min, rays, leaf_q=64, got=None, exp=None):
+    """Hold K6's planes against its twin's: equal on every plane of every
+    ray. Returns the largest absolute difference (0)."""
+    from sfvp_tpu_torch.kernels.bvh_packet2 import (
+        packet_trace2, packet_trace2_plain)
+
+    if got is None:
+        got = packet_trace2(dw, t_min, rays, leaf_q)
+    if exp is None:
+        exp = packet_trace2_plain(dw, t_min, rays, leaf_q)
+    apart = int((got != exp).any(0).sum())
+    print(f"  K6 {label:14s} {rays.shape[1]} rays, "
+          f"{int(torch.isfinite(exp[0]).sum())} hits, leaf_q {leaf_q}: "
+          f"{apart} rays with a plane apart")
+    check(apart == 0, f"K6 {label} disagrees with its twin on {apart} rays")
+    return 0.0
+
+
+def compare_images(label, a, b, mrays_a, mrays_b):
+    """Hold two renders of one estimator over K6 and over K3 (+ K4), which
+    may take another triangle at an exact tie in t, to the kernel-vs-twin
+    bounds: relative RMSE below TWIN_REL_RMSE, fewer than TWIN_OFF_FRAC of
+    the pixels apart by more than TWIN_OFF_ABS, segments within SEGS_REL."""
+    diff = (a - b).abs()
+    rel = rel_rmse(a, b)
+    off = float((diff.amax(-1) > TWIN_OFF_ABS).float().mean())
+    seg_a, seg_b = (round(float(x) * 1e6) for x in (mrays_a, mrays_b))
+    seg_rel = abs(seg_a - seg_b) / seg_b
+    print(f"  {label}: rel_rmse={rel:.3e} pixels_off={off:.3e} "
+          f"max_abs={float(diff.max()):.3e} segs={seg_a} vs {seg_b} (rel "
+          f"{seg_rel:.3e})")
+    check(rel < TWIN_REL_RMSE and off < TWIN_OFF_FRAC and seg_rel <= SEGS_REL,
+          f"{label}: rel_rmse {rel}, pixels off {off}, segment rel diff "
+          f"{seg_rel}")
+
+
+def k6_twin_phase(big, city):
+    from sfvp_tpu_torch.dispatch import stream_tris
+    from sfvp_tpu_torch.kernels.bvh_packet import packet_trace, ray_planes
+    from sfvp_tpu_torch.kernels.bvh_packet2 import packet_trace2
+
+    size = CROSS_SIZE
+    phase(f"k6 twins: K6 vs its twin on {size}^2-ray waves of the "
+          f"{BIG_TRIS // 1000}k sphere (camera, bounce, random, partial, "
+          "active, leaf_q 2) and the city's NEE shadow wave (stream_tris="
+          "True); K6 and K3 on the same triangle")
+    cfg, dw, wide = big["cfg"], big["dw"], big["wide"]
+    nbytes = wide.nodes.nbytes + wide.tris.nbytes
+    print(f"  {BIG_TRIS // 1000}k sphere: wide BVH of {nbytes} bytes, "
+          f"streamed (K6): {stream_tris(cfg, wide)}")
+    check(stream_tris(cfg, wide), "the 500k sphere is not on K6's route")
+    wave = dict(width=size, height=size, spp_per_step=1)
+    camera, bounce = capture_waves(dataclasses.replace(cfg, **wave), big,
+                                   (0, 1))
+    g = np.random.default_rng(0)
+    m = size * size
+    o = torch.tensor(g.uniform(-1.5, 1.5, (3, m)), dtype=torch.float32,
+                     device=DEVICE)
+    d = torch.tensor(g.normal(size=(3, m)), dtype=torch.float32,
+                     device=DEVICE)
+    d = d / d.norm(dim=0)
+    random = ray_planes(tuple(o), tuple(d), cfg.t_max)
+    # the camera wave with 30% of its rays inactive, and cut so that its
+    # last packet holds 524 rays, its center ray then a padding ray
+    active = camera.clone()
+    active[6, torch.tensor(g.uniform(size=m) < 0.3, device=DEVICE)] = (
+        float("-inf"))
+    partial = camera[:, :m - 500].contiguous()
+    shadow = capture_waves(dataclasses.replace(city["cfg"], **wave,
+                                               stream_tris=True),
+                           city, (0,), shadow=True)[0]
+    worst = 0.0
+    for label, tree, rays, leaf_q in (
+            ("camera", dw, camera, 64), ("bounce", dw, bounce, 64),
+            ("random", dw, random, 64), ("partial", dw, partial, 64),
+            ("active", dw, active, 64), ("bounce", dw, bounce, 2),
+            ("city shadow", city["dw"], shadow, 64)):
+        worst = max(worst, compare_k6(label, tree, cfg.t_min, rays, leaf_q))
+    for label, rays in (("camera", camera), ("bounce", bounce)):
+        frac = same_triangle(packet_trace2(dw, cfg.t_min, rays),
+                             packet_trace(dw, cfg.t_min, rays))
+        print(f"  K6 vs K3 {label}: the same triangle on {frac:.6f} of "
+              f"{rays.shape[1]} rays")
+        check(frac >= K3_SAME_TRI, f"K6 and K3 {label}: same triangle on "
+                                   f"{frac}")
+    return worst
+
+
+def adaptive_cross_phase(big, city):
+    """The adaptive sampler over K6 against the Renderer and the adaptive
+    sampler over K3 (+ K4), at CROSS_SIZE^2."""
+    from sfvp_tpu_torch import init_state
+    from sfvp_tpu_torch.dispatch import select_render_step
+    from sfvp_tpu_torch.integrate.adaptive import (
+        adaptive_image, init_adaptive_state, make_adaptive_steps)
+
+    n, per_step = CROSS_SIZE, BVH_SPP * BVH_DEPTH
+    phase(f"adaptive cross-checks at {n}x{n}, {BVH_SPP} spp, depth "
+          f"{BVH_DEPTH}, cosine + RR: the uniform step over K6 vs the "
+          "Renderer over K3; adaptive steps over K6 and K3 from one state; "
+          "the city with NEE + MIS over K6 vs K3 + K4")
+    size = dict(width=n, height=n, megakernel_regen=False)
+    cfg = dataclasses.replace(big["cfg"], **size, spp_per_step=BVH_SPP)
+
+    def steps(s, c, stream):
+        return make_adaptive_steps(
+            dataclasses.replace(c, stream_tris=stream), s["buffers"],
+            frac=ADAPT_FRAC, tile=ADAPT_TILE, wide=s["wide"])
+
+    (uni6, ada6), (_, ada3) = steps(big, cfg, True), steps(big, cfg, False)
+    reset_counts()
+    k6 = uni6(init_adaptive_state(n, n, DEVICE))
+    k3 = select_render_step(dataclasses.replace(cfg, stream_tris=False),
+                            big["buffers"], wide=big["wide"])(
+        init_state(n, n, DEVICE))
+    launches = read_counts()
+    check(launches == only(K6=per_step, K3=per_step),
+          f"uniform step and Renderer step launches {launches}")
+    compare_images("uniform step over K6 vs Renderer over K3",
+                   adaptive_image(k6), k3.accum, k6.mrays, k3.mrays)
+    a6, a3 = ada6(k6), ada3(k6)
+    same = torch.equal(a6.count, a3.count)
+    print(f"  adaptive steps over K6 and K3 from one state: the same tiles "
+          f"{same} ({int((a6.count > k6.count).sum())} pixels each)")
+    check(same, "the adaptive steps over K6 and K3 picked other tiles")
+    compare_images("adaptive step over K6 vs over K3", adaptive_image(a6),
+                   adaptive_image(a3), a6.mrays - k6.mrays,
+                   a3.mrays - k6.mrays)
+
+    ccfg = dataclasses.replace(city["cfg"], **size)
+    out = {}
+    for stream, want in ((True, only(K6=2 * per_step)),
+                         (False, only(K3=per_step, K4=per_step))):
+        reset_counts()
+        out[stream] = steps(city, ccfg, stream)[0](
+            init_adaptive_state(n, n, DEVICE))
+        launches = read_counts()
+        check(launches == want, f"city uniform step (stream_tris={stream}) "
+                                f"launches {launches}")
+    compare_images("city NEE + MIS uniform step, K6 vs K3 + K4",
+                   adaptive_image(out[True]), adaptive_image(out[False]),
+                   out[True].mrays, out[False].mrays)
+
+
+def adaptive_main_path_phase(tmp, city):
+    from sfvp_tpu_torch import RenderConfig, Renderer
+    from sfvp_tpu_torch.cli import procedural_scene
+    from sfvp_tpu_torch.integrate.adaptive import AdaptiveRenderer
+    from sfvp_tpu_torch.kernels import bvh_packet, bvh_packet2
+
+    per_step = BVH_SPP * BVH_DEPTH
+    phase(f"adaptive main path: cli {' '.join(ADAPT_CLI)} at {BVH_W}x"
+          f"{BVH_H} (K6); Renderer with megakernel_regen=False, 1 step (K6), "
+          f"and with stream_tris=False as well, 1 step (K3, the route before "
+          f"K6 was ported); AdaptiveRenderer on the city, NEE + MIS + RR, stream_tris=True, "
+          f"{CITY_ADAPT_STEPS} steps (K6)")
+    runs = {}
+    reset_counts()
+    setup, recs, img = run_cli(tmp, "adaptive", [
+        *ADAPT_CLI, "--width", str(BVH_W), "--height", str(BVH_H)])
+    runs["cli_adaptive"] = read_counts()
+    print(f"  launches: {runs['cli_adaptive']} "
+          f"({runs['cli_adaptive']['K6'] / ADAPT_STEPS:.0f} a step)")
+    check(runs["cli_adaptive"] == only(K6=ADAPT_STEPS * per_step),
+          f"cli adaptive launches {runs['cli_adaptive']}")
+    k = int(np.ceil(ADAPT_FRAC * (BVH_W // ADAPT_TILE) * (BVH_H // ADAPT_TILE)))
+    pixels = ([BVH_W * BVH_H] * ADAPT_WARMUP
+              + [k * ADAPT_TILE ** 2] * (ADAPT_STEPS - ADAPT_WARMUP))
+    check([r["pixels"] for r in recs] == pixels, f"adaptive records {recs}")
+    for rec in recs:
+        print(f"  step {rec['step']}: {rec['pixels']} pixels, step_s "
+              f"{rec['step_s']}, {rec['mrays_step']} Mrays, "
+              f"{rec['mrays_per_s']} Mrays/s, mean spp {rec['mean_spp']}")
+    check_image(f"K6 adaptive {BIG_TRIS // 1000}k sphere", img, BVH_H, BVH_W)
+
+    scene, cfg = procedural_scene("sphere", BIG_TRIS, RenderConfig(
+        width=BVH_W, height=BVH_H, spp_per_step=BVH_SPP,
+        max_depth=BVH_DEPTH, sampling="cosine", use_rr=True,
+        megakernel_regen=False))
+    k3_cfg = dataclasses.replace(cfg, stream_tris=False)
+    for name, make, steps, kernels, (module, fn) in (
+            ("renderer_k6", lambda: Renderer(cfg, scene, DEVICE), 1,
+             dict(K6=per_step), (bvh_packet2, "packet_trace2")),
+            ("renderer_k3", lambda: Renderer(k3_cfg, scene, DEVICE), 1,
+             dict(K3=per_step), (bvh_packet, "packet_trace")),
+            ("adaptive_city", lambda: AdaptiveRenderer(
+                dataclasses.replace(city["cfg"], stream_tris=True),
+                city["scene"], DEVICE, frac=ADAPT_FRAC, tile=ADAPT_TILE,
+                warmup=ADAPT_WARMUP), CITY_ADAPT_STEPS,
+             dict(K6=2 * per_step * CITY_ADAPT_STEPS),
+             (bvh_packet2, "packet_trace2"))):
+        log = os.path.join(tmp, f"{name}.jsonl")
+        reset_counts()
+        r = make()
+        # every payload-trace call between CUDA events, their sum beside
+        # the steps' host time
+        in_k, img = timed_calls(module, [fn], lambda: r.run(
+            steps, log_path=log, progress=False))
+        runs[name] = read_counts()
+        print(f"  {name}: launches {runs[name]}; set-up: wide BVH built in "
+              f"{r.bvh_build_s:.2f} s")
+        check(runs[name] == only(**kernels), f"{name} launches {runs[name]}")
+        recs = [json.loads(x) for x in open(log).read().splitlines()]
+        check(len(recs) == steps, f"{len(recs)} log records")
+        step_ms = sum(rec["step_s"] for rec in recs) * 1e3
+        for rec in recs:
+            print(f"  step {rec['step']}: step_s {rec['step_s']}, "
+                  f"{rec['mrays_per_s']} Mrays/s")
+        k = next(iter(kernels))
+        print(f"  {name}: {k}'s {runs[name][k]} calls {in_k[fn]:.3f} ms "
+              f"(CUDA events) of {step_ms:.2f} ms (host), "
+              f"{in_k[fn] / step_ms:.1%}")
+        check_image(name, img, BVH_H, BVH_W)
+    return runs
+
+
+def packet_ops(counts):
+    """FP32 operations of K6's own union walk, as its twin counted its
+    pops: per node pop of a packet, 1024 rays x 8 slab tests and the
+    network; per leaf pop, 1024 x 8 triangle tests. A diagnostic of the
+    design, not K6's bound: the function (closest hit) needs only what
+    K3's per-ray walk pops on the same rays."""
+    return (counts["node_pops"] * (1024 * 8 * BOX_OPS + SORT_OPS)
+            + counts["leaf_pops"] * 1024 * 8 * TRI_OPS_ROWS)
+
+
+def k6_timing_phase(big):
+    from sfvp_tpu_torch.integrate.adaptive import (
+        init_adaptive_state, make_adaptive_steps)
+    from sfvp_tpu_torch.kernels import bvh_packet2
+    from sfvp_tpu_torch.kernels.bvh_packet import packet_trace, packet_trace_plain
+    from sfvp_tpu_torch.kernels.bvh_packet2 import (
+        packet_trace2, packet_trace2_plain)
+
+    phase(f"k6 times and twin check on the {BIG_TRIS // 1000}k sphere: the "
+          f"swizzled {BVH_W}x{BVH_H} first- and third-bounce waves and an "
+          f"adaptive wave ({ADAPT_FRAC} of the {ADAPT_TILE}^2 tiles), K6 "
+          "beside K3, CUDA events")
+    cfg, dw, wide = big["cfg"], big["dw"], big["wide"]
+    one = dataclasses.replace(cfg, width=BVH_W, height=BVH_H, spp_per_step=1,
+                              megakernel_regen=False)
+    first, third = capture_waves(one, big, (0, 2))
+    uni, ada = make_adaptive_steps(one, big["buffers"], frac=ADAPT_FRAC,
+                                   tile=ADAPT_TILE, wide=wide)
+    st = uni(uni(init_adaptive_state(BVH_H, BVH_W, DEVICE)))
+    adaptive = capture(bvh_packet2, "ray_planes", (0,), lambda: ada(st),
+                       lambda a, out: out)[0]
+    check(adaptive.shape[1] == ada.pixels, f"adaptive wave {adaptive.shape}")
+    nbytes_tree = tree_nbytes(wide)
+    times, worst = {}, 0.0
+    for label, rays in (("first bounce", first), ("third bounce", third),
+                        ("adaptive", adaptive)):
+        ms, got = cuda_ms(lambda: packet_trace2(dw, cfg.t_min, rays), 10)
+        counts = {}
+        plain, exp = cuda_ms(lambda: packet_trace2_plain(
+            dw, cfg.t_min, rays, counts=counts), 1, warm=False)
+        worst = max(worst, compare_k6(label, dw, cfg.t_min, rays, got=got,
+                                      exp=exp))
+        ms3, got3 = cuda_ms(lambda: packet_trace(dw, cfg.t_min, rays), 10)
+        counts3 = {}
+        plain3, _ = cuda_ms(lambda: packet_trace_plain(
+            dw, cfg.t_min, rays, counts3), 1, warm=False)
+        nbytes = nbytes_tree + rays.shape[1] * (7 + 19) * 4
+        # K6 computes K3's function (they differ only at exact ties), so
+        # both are held to the bound of its work: K3's per-ray pops
+        b3, union = bound(traversal_ops(counts3), nbytes), bound(
+            packet_ops(counts), nbytes)
+        same = same_triangle(got, got3)
+        print(f"  {label}: {rays.shape[1]} rays, "
+              f"{int((rays[6] > cfg.t_min).sum())} active; bound {b3[0]:.4f} "
+              f"ms ({b3[1]}, K3's pops {counts3}); K6 {ms:.3f} ms/launch "
+              f"(twin {plain:.1f} ms; {ms / b3[0]:.1f}x the bound; union-walk "
+              f"pops {counts}, their own bound {union[0]:.4f} ms, {union[1]})"
+              f"; K3 {ms3:.3f} ms/launch (twin {plain3:.1f} ms; "
+              f"{ms3 / b3[0]:.1f}x the bound); K6/K3 {ms / ms3:.2f}; same "
+              f"triangle {same:.6f}")
+        check(same >= K3_SAME_TRI, f"K6 and K3 {label}: same triangle on "
+                                   f"{same}")
+        times[label] = {"K6": (ms, plain) + b3, "K3": (ms3, plain3) + b3,
+                        "K6 union walk": union}
+    return times, worst
+
+
 def kernel_entry(name, source, replaces, per, launches, worst, times,
                  nee=None):
     """One kernel of the report; ``nee``: (per, launches, worst, times) of
@@ -1554,7 +1900,8 @@ def main() -> int:
     bvh_times, bvh_worst = bvh_timing_phase(sphere)
     times.update(bvh_times)
     worst = {k: max(worst[k], bvh_worst.get(k, 0.0)) for k in worst}
-    worst["K5"] = max(worst["K5"], big_sphere_phase(sphere))
+    big_worst, big = big_sphere_phase(sphere)
+    worst["K5"] = max(worst["K5"], big_worst)
     sort_phase(sphere)
     del sphere
 
@@ -1567,7 +1914,6 @@ def main() -> int:
         nee_runs = nee_main_path_phase(tmp)
     nee_times, nee_main_worst = nee_timing_phase(city)
     nee_worst = {k: max(v, nee_main_worst[k]) for k, v in nee_worst.items()}
-    del city
 
     phase(f"tlas set-up: the {FIELD_TRIS // 1000}k instanced field and the "
           "lit field")
@@ -1578,6 +1924,13 @@ def main() -> int:
         tlas_runs = tlas_main_path_phase(tmp, field, lit)
     tlas_times, tlas_main_worst = tlas_timing_phase(field, lit)
     tlas_worst = {k: max(v, tlas_main_worst[k]) for k, v in tlas_worst.items()}
+    del field, lit
+
+    k6_worst = k6_twin_phase(big, city)
+    adaptive_cross_phase(big, city)
+    with tempfile.TemporaryDirectory() as tmp:
+        k6_runs = adaptive_main_path_phase(tmp, city)
+    k6_times, k6_time_worst = k6_timing_phase(big)
 
     step = f"step ({MAIN_W}x{MAIN_H}, {MAIN_SPP} spp, Cornell)"
     city_step = (f"step ({BVH_W}x{BVH_H}, {BVH_SPP} spp, city, cosine + RR "
@@ -1619,6 +1972,15 @@ def main() -> int:
                      bvh_runs["cli_100k"]["K5"], worst["K5"], times["K5"],
                      nee=(city_step, nee_runs["cli_city"]["K5"],
                           nee_worst["K5"], nee_times["K5"])),
+        dict(kernel_entry("packet_trace2 (K6)",
+                     "sfvp_tpu_torch/csrc/packet_trace2.cu",
+                     "sfvp_tpu/kernels/bvh_packet2.py:512",
+                     f"launch on the {BVH_W}x{BVH_H} first-bounce wave "
+                     f"({BIG_TRIS // 1000}k sphere)",
+                     k6_runs["cli_adaptive"]["K6"],
+                     max(k6_worst, k6_time_worst),
+                     k6_times["first bounce"]["K6"]),
+             union_walk_bound_ms=k6_times["first bounce"]["K6 union walk"][0]),
         kernel_entry("tlas_trace (K7)", "sfvp_tpu_torch/csrc/tlas_trace.cu",
                      "sfvp_tpu/kernels/bvh_tlas.py:403",
                      f"{field_wave} wave (instanced field)",

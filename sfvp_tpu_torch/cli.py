@@ -11,10 +11,14 @@ Example:
         --steps 8 --out cornell_nee.png
     python -m sfvp_tpu_torch.cli --scene instanced --scene-tris 220000 \
         --sampling cosine --spp 8 --steps 4 --out field.png
+    python -m sfvp_tpu_torch.cli --scene sphere --scene-tris 500000 \
+        --sampling cosine --rr --spp 8 --adaptive 0.25 --steps 6
 
 Flags of features not ported yet (--env-map, --lens-radius, --focus-dist,
---dist, --adaptive) raise NotImplementedError; --env-map with --scene
-instanced raises ValueError, as in sfvp_tpu.
+--dist) raise NotImplementedError; --env-map with --scene instanced raises
+ValueError, as in sfvp_tpu. With --adaptive, --log writes one JSONL record
+a step (integrate/adaptive.py AdaptiveRenderer.run) and --frame-every is
+ignored, as in sfvp_tpu.
 """
 
 from __future__ import annotations
@@ -66,12 +70,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mis", action="store_true",
                    help="balance-heuristic MIS between NEE and BSDF "
                         "sampling (implies --nee)")
+    p.add_argument("--adaptive", type=float, default=None, metavar="FRAC",
+                   help="variance-driven adaptive sampling: after warmup, "
+                        "each step renders only the noisiest FRAC of tiles")
+    p.add_argument("--adaptive-tile", type=int, default=16)
+    p.add_argument("--adaptive-warmup", type=int, default=2)
     # not ported yet: each raises NotImplementedError when used
     p.add_argument("--env-map", default=None)
     p.add_argument("--lens-radius", type=float, default=0.0)
     p.add_argument("--focus-dist", type=float, default=0.0)
     p.add_argument("--dist", action="store_true")
-    p.add_argument("--adaptive", type=float, default=None, metavar="FRAC")
     return p
 
 
@@ -80,7 +88,6 @@ _NOT_PORTED = {
     "lens_radius": "thin-lens depth of field (ROADMAP.md A.12)",
     "focus_dist": "thin-lens depth of field (ROADMAP.md A.12)",
     "dist": "multi-device rendering (ROADMAP.md A.17)",
-    "adaptive": "adaptive sampling (ROADMAP.md A.16)",
 }
 
 
@@ -112,7 +119,14 @@ def main(argv=None) -> int:
         scene = load_obj(args.obj or cornell_box_path())
     else:
         scene, cfg = procedural_scene(args.scene, args.scene_tris, cfg)
-    r = Renderer(cfg, scene, args.device)
+    if args.adaptive is not None:
+        from .integrate.adaptive import AdaptiveRenderer
+
+        r = AdaptiveRenderer(cfg, scene, args.device, frac=args.adaptive,
+                             tile=args.adaptive_tile,
+                             warmup=args.adaptive_warmup)
+    else:
+        r = Renderer(cfg, scene, args.device)
     if not args.quiet and r.wide is not None:
         print(f"set-up: wide BVH of {scene.num_triangles} triangles "
               f"({r.wide.nodes.shape[0]} nodes, {r.wide.tris.shape[0]} leaf "
@@ -125,6 +139,11 @@ def main(argv=None) -> int:
               flush=True)
     if args.resume and args.checkpoint:
         r.resume(args.checkpoint)
+    if args.adaptive is not None:
+        r.run(steps=args.steps, out=args.out, srgb=args.srgb,
+              progress=not args.quiet, checkpoint_path=args.checkpoint,
+              checkpoint_every=args.checkpoint_every, log_path=args.log)
+        return 0
     r.run(
         steps=args.steps,
         out=args.out,

@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,9 +95,8 @@ class RenderConfig:
     rr_start_depth: int = 3
 
     # Execution knobs (do not affect the image in expectation). The JAX
-    # package's TPU knobs (backend, block rows, packet tiling, triangle
-    # streaming, the VMEM budget) are unhashed and have no counterpart
-    # here.
+    # package's TPU knobs (backend, block rows, the VMEM budget) are
+    # unhashed and have no counterpart here.
     spp_chunk: int = 1               # samples folded into one ray wave
     # "auto" | "brute" | "bvh"
     traversal: str = "auto"
@@ -119,6 +118,12 @@ class RenderConfig:
     # prepend the surface material type to that sort key; only engages on
     # scenes that mix materials. Execution knob: never changes the image.
     sort_material_key: bool = True
+    # the packet trace K6 (kernels/bvh_packet2.py) as the wavefront loop's
+    # payload and shadow trace on the bvh route: None = as sfvp_tpu decides
+    # it, when the wide BVH's rows exceed its VMEM budget of 13 MiB
+    # (dispatch.STREAM_SCENE_BYTES); True/False = force. Execution knob:
+    # K6 and K3 differ only in which triangle wins an exact tie in t.
+    stream_tris: Optional[bool] = None
     # debug config: assert a finite accumulator at every observed step
     # boundary of the progressive loop.
     debug_nan: bool = False

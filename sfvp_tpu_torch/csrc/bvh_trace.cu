@@ -11,8 +11,10 @@
 // What bounds it on an H100: dependent loads and divergence, not bytes.
 // Each pop reads one 256-byte node prefix or one 512-byte leaf row at an
 // address that depends on the previous pop, and the 32 rays of a warp walk
-// different paths. The tree (6.4 MB at 100k triangles, 32 MB at 500k) fits
-// the 50 MB L2, so after the first touches most loads hit in L2 or L1.
+// different paths. The tree (node and leaf rows, accel/wide.py: 10.4 MB for
+// the 100k sphere, 57.8 MB for the 500k one): the 100k tree fits the 50 MB
+// L2, so after the first touches most loads hit in L2 or L1; the 500k tree
+// does not, and part of its rows come from HBM.
 // What the simple design does about it: nothing beyond caching; the
 // per-ray stack lives in local memory (L1-cached). Left for later work:
 // ray reordering for coherent warps, a compact node format, persistent

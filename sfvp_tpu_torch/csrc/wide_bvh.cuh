@@ -2,8 +2,9 @@
 // ray per thread: the closest hit shared by K3 (bvh_trace.cu) and K5
 // (bvh_regen_render.cu), the any hit by K4 (bvh_occlusion.cu) and K5's
 // shadow rays; and the pieces of a walk that the two-level walks of
-// two_level.cuh (K7, K8, K9) share with them: the triangle-slot test, the
-// slab tests of a node's children and the sorting network.
+// two_level.cuh (K7, K8, K9) and the packet walk of K6 (packet_trace2.cu)
+// share with them: the triangle-slot test, the slab tests of a node's
+// children and the sorting network.
 //
 // The tree is read from device memory in the JAX package's 128-lane row
 // layout: a node row holds its 8 children's boxes (lanes 0-47), refs
@@ -114,24 +115,9 @@ __device__ __forceinline__ bool enters(const float* row, int c, const Ray& r,
   return tnear <= tfar;
 }
 
-// The children of a node row that a closest-hit walk pushes, far to near:
-// cc[0..7] their codes (0 = none), the nearest last. Each child the ray
-// enters in [t_min, limit] gets its entry distance as key (-inf for no
-// push), and the JAX package's 19-comparator network sorts the keys
-// descending.
-__device__ __forceinline__ void sorted_children(const float* row,
-                                                const Ray& r, float t_min,
-                                                float limit, int cc[8]) {
-  float key[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    float tnear;
-    const bool hit = enters(row, c, r, t_min, limit, tnear);
-    const int code_c = child_code(row, c);
-    const bool push = code_c != 0 && hit;
-    key[c] = push ? tnear : __int_as_float(0xff800000);  // -inf
-    cc[c] = push ? code_c : 0;
-  }
+// Sort 8 (key, code) pairs by key, descending, in place, through the JAX
+// package's 19-comparator network (sfvp_tpu/kernels/bvh_packet.py:247-250).
+__device__ __forceinline__ void sort_desc(float key[8], int cc[8]) {
 #define SFVP_CMPSWAP(a, b)                                 \
   {                                                        \
     const bool sw = key[a] < key[b];                       \
@@ -152,6 +138,26 @@ __device__ __forceinline__ void sorted_children(const float* row,
   SFVP_CMPSWAP(3, 6) SFVP_CMPSWAP(2, 4) SFVP_CMPSWAP(3, 5)
   SFVP_CMPSWAP(3, 4)
 #undef SFVP_CMPSWAP
+}
+
+// The children of a node row that a closest-hit walk pushes, far to near:
+// cc[0..7] their codes (0 = none), the nearest last. Each child the ray
+// enters in [t_min, limit] gets its entry distance as key (-inf for no
+// push), and sort_desc orders the keys descending.
+__device__ __forceinline__ void sorted_children(const float* row,
+                                                const Ray& r, float t_min,
+                                                float limit, int cc[8]) {
+  float key[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float tnear;
+    const bool hit = enters(row, c, r, t_min, limit, tnear);
+    const int code_c = child_code(row, c);
+    const bool push = code_c != 0 && hit;
+    key[c] = push ? tnear : __int_as_float(0xff800000);  // -inf
+    cc[c] = push ? code_c : 0;
+  }
+  sort_desc(key, cc);
 }
 
 // Closest hit in (t_min, tmax) of one ray. A ray with tmax <= t_min (an

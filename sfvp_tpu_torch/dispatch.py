@@ -16,13 +16,19 @@ instanced routes of select_instanced_render_step (dispatch.py:373-531):
     (integrate/wavefront.py) over the payload trace K3 and, with
     ``cfg.use_nee``, the any-hit trace K4 for its shadow rays
     (kernels/bvh_packet.py), with the per-bounce ray sort when
-    ``cfg.sort_bounce_rays`` is on;
+    ``cfg.sort_bounce_rays`` is on; on a streamed scene
+    (``stream_tris``) over the packet trace K6
+    (kernels/bvh_packet2.py) for both, as sfvp_tpu's
+    ``packet_trace_kwargs`` (dispatch.py:534-561);
   - instanced (a list of accel.instances.Instance): the two-level BVH
     (accel/tlas.py) traced by K9 (kernels/megakernel_bvh.py with ``tl=``)
     by default, or with ``megakernel_regen=False`` by the wavefront loop
     over the two-level payload trace K7 and, with ``cfg.use_nee``, the
     two-level any-hit trace K8 (kernels/bvh_tlas.py); materials and
     lights come from the flattened scene's buffers.
+
+``select_wavefront_kwargs`` gives the adaptive sampler
+(integrate/adaptive.py) the same trace as the wavefront loop.
 
 The TPU's VMEM gates have no meaning on the GPU (ROADMAP.md A.19): every
 scene lives in device memory, and so does the light table, so any number
@@ -35,6 +41,11 @@ inside each kernel wrapper: a CUDA tensor runs the hand-written kernel, a
 CPU tensor its plain PyTorch twin. A config outside the ported slice
 raises NotImplementedError naming its ROADMAP.md item; nothing falls back
 to another integrator.
+
+One of them stays as a rule of route parity, not of memory: the stream
+decision (``stream_tris``) takes K6 where sfvp_tpu does, on a scene whose
+wide BVH outgrows sfvp_tpu's VMEM budget (``STREAM_SCENE_BYTES``), so both
+packages trace the same scene through the same kernel.
 
 SFVP_DISPATCH_DEBUG=1 prints the route taken (stderr, one line per
 selection).
@@ -57,6 +68,66 @@ def _dbg(choice: str, **why) -> None:
               file=sys.stderr, flush=True)
 
 
+# sfvp_tpu's vmem_scene_budget (sfvp_tpu/config.py:138-140): the wide BVH
+# size above which it streams triangle rows and traces through K6
+STREAM_SCENE_BYTES = 13 * 1024 * 1024
+
+
+def stream_tris(cfg: RenderConfig, wide) -> bool:
+    """Whether the wavefront loop traces the host WideBVH ``wide`` through
+    K6: ``cfg.stream_tris`` when set, else whether its node and leaf rows
+    (and texture rows) exceed STREAM_SCENE_BYTES (sfvp_tpu dispatch.py
+    :266-270)."""
+    if cfg.stream_tris is not None:
+        return bool(cfg.stream_tris)
+    nbytes = wide.nodes.nbytes + wide.tris.nbytes + (
+        wide.tris_aux.nbytes if wide.tris_aux is not None else 0)
+    return nbytes > STREAM_SCENE_BYTES
+
+
+def packet_trace_kwargs(cfg: RenderConfig, dw, stream: bool) -> dict:
+    """make_render_step kwargs of the wavefront loop over the device wide
+    BVH ``dw``: K6 as the payload trace and no any-hit kernel (shadow rays
+    go through K6) on a streamed scene, else K3 and, with
+    ``cfg.use_nee``, K4 (sfvp_tpu dispatch.py:534-561)."""
+    from .kernels.bvh_packet import make_packet_occlusion, make_packet_trace
+
+    if stream:
+        from .kernels.bvh_packet2 import make_packet_trace2
+
+        return {"trace_payload_fn": make_packet_trace2(dw, t_min=cfg.t_min),
+                "occlusion_fn": None}
+    return {"trace_payload_fn": make_packet_trace(dw, t_min=cfg.t_min),
+            "occlusion_fn": (make_packet_occlusion(dw, t_min=cfg.t_min)
+                             if cfg.use_nee else None)}
+
+
+def _need_wide(wide):
+    if wide is None:
+        raise ValueError(
+            "the bvh route traces the scene's wide BVH: pass wide="
+            "accel.wide.build_wide_from_buffers(buffers)")
+
+
+def select_wavefront_kwargs(cfg: RenderConfig, buffers, wide=None) -> dict:
+    """make_render_step kwargs of a wavefront-loop integrator on a
+    single-level scene: the packet traces on the bvh route
+    (``packet_trace_kwargs``, over the host WideBVH ``wide``), none (brute
+    force) otherwise. Shared by select_render_step and the adaptive
+    sampler, as sfvp_tpu's select_wavefront_kwargs (dispatch.py:564-580);
+    an instanced scene's come from ``instanced_wavefront_kwargs``."""
+    if resolve_traversal(cfg, buffers) != "bvh":
+        return {}
+    _need_wide(wide)
+    from .kernels.bvh_packet import device_wide
+
+    stream = stream_tris(cfg, wide)
+    _dbg("wavefront(packet kernels)", stream=stream, tris=buffers.num_tris,
+         device=buffers.device, sort=cfg.sort_bounce_rays, nee=cfg.use_nee)
+    return packet_trace_kwargs(cfg, device_wide(wide, buffers.device),
+                               stream)
+
+
 def resolve_traversal(cfg: RenderConfig, buffers) -> str:
     """"brute" or "bvh": "auto" takes the BVH above
     ``cfg.brute_force_max_tris`` triangles."""
@@ -76,29 +147,20 @@ def select_render_step(cfg: RenderConfig, buffers,
     dev = buffers.device
     t = buffers.num_tris
     if resolve_traversal(cfg, buffers) == "bvh":
-        if wide is None:
-            raise ValueError(
-                "the bvh route traces the scene's wide BVH: pass wide="
-                "accel.wide.build_wide_from_buffers(buffers)")
-        from .kernels.bvh_packet import device_wide
-
-        dw = device_wide(wide, dev)
+        _need_wide(wide)
         if cfg.megakernel_regen:
+            from .kernels.bvh_packet import device_wide
             from .kernels.megakernel_bvh import make_bvh_regen_render_step
 
             _dbg("megakernel_bvh(fused regen)", tris=t, device=dev)
             return make_bvh_regen_render_step(
-                cfg, buffers, dw, global_shape=global_shape)
+                cfg, buffers, device_wide(wide, dev),
+                global_shape=global_shape)
         from .integrate.wavefront import make_render_step
-        from .kernels.bvh_packet import make_packet_occlusion, make_packet_trace
 
-        _dbg("wavefront(packet kernels)", tris=t, device=dev,
-             sort=cfg.sort_bounce_rays, nee=cfg.use_nee)
         return make_render_step(
             cfg, buffers, global_shape=global_shape,
-            trace_payload_fn=make_packet_trace(dw, t_min=cfg.t_min),
-            occlusion_fn=(make_packet_occlusion(dw, t_min=cfg.t_min)
-                          if cfg.use_nee else None))
+            **select_wavefront_kwargs(cfg, buffers, wide))
     if cfg.megakernel_regen:
         from .kernels.megakernel_regen import make_regen_render_step
 

@@ -8,13 +8,17 @@ trace -> shade, vectorised over the wave; terminated rays are masked.
 kernels/megakernel_bvh.py): it takes the colour to add into, so a twin can
 reproduce its kernel's summation order, and a trace hook, so the same
 loop runs over brute force (``brute_surface``) or the wide BVH's payload
-trace (``payload_surface``, K3 on a CUDA tensor), and a shadow hook, so
-next-event estimation tests its shadow rays by brute force
-(``brute_occluded``) or by the any-hit trace (K4 on a CUDA tensor).
+trace (``payload_surface``, K3, K6 or K7 on a CUDA tensor), and a shadow
+hook, so next-event estimation tests its shadow rays by brute force
+(``brute_occluded``), by an any-hit trace (K4 or K8 on a CUDA tensor) or,
+on a route without one, by the payload trace (``payload_occluded``, K6).
 
 Large scenes run here through ``make_render_step(...,
 trace_payload_fn=...)``, the payload path of sfvp_tpu's wavefront loop,
-with its per-bounce ray sort (``sort_key``) as an execution knob.
+with its pixel-tile swizzle (``PACKET_TILE``) and its per-bounce ray sort
+(``sort_key``), neither of which changes a pixel's colour sum. The step's building block,
+``render_step.render_pixels``, also drives the adaptive sampler
+(integrate/adaptive.py).
 
 Parity-mode semantics preserved exactly (ref shaders/raygen.rgen:41-91):
   - color += weight * emission on EVERY segment, including the miss segment
@@ -61,6 +65,11 @@ UNIFORM_SCALE = float(np.float32(INV_PI) * np.float32(TWO_PI))
 UNIFORM_PDF = f32(1.0 / TWO_PI)
 # a shadow ray stops this fraction short of its light sample
 SHADOW_SCALE = f32(1.0 - 1e-3)
+# side of the payload route's square pixel tiles: 32 x 32 is K6's 1024-ray
+# packet (kernels/bvh_packet2.PACKET), so a packet covers one compact screen
+# tile instead of one image row. Applied on every payload route, as sfvp_tpu
+# does (its packet_tile_size), to keep the wave order of the JAX package.
+PACKET_TILE = 32
 
 
 class RenderState(NamedTuple):
@@ -175,6 +184,18 @@ def payload_surface(cfg: RenderConfig, trace_payload_fn) -> Callable:
             trace_payload_fn(o, d, cfg.t_max, active=active))
 
     return surface
+
+
+def payload_occluded(trace_payload_fn) -> Callable:
+    """Shadow hook of ``trace_wave`` through a payload trace, for a route
+    with no any-hit kernel (K6's): a triangle lies in (t_min, t_max) where
+    the closest hit in that window is finite, as sfvp_tpu's
+    _shadow_occluded (wavefront.py:299-303)."""
+
+    def occluded(o, d, t_max, active):
+        return torch.isfinite(trace_payload_fn(o, d, t_max, active=active).t)
+
+    return occluded
 
 
 def make_sort_key(cfg: RenderConfig, scene) -> Optional[Callable]:
@@ -514,15 +535,25 @@ def make_render_step(cfg: RenderConfig, scene,
 
     ``trace_payload_fn(o, d, t_max, active) -> Payload``: trace through a
     payload trace (kernels/bvh_packet.make_packet_trace, K3 on a CUDA
-    device) instead of brute force; then, when ``cfg.sort_bounce_rays`` is
-    on, every bounce after the first sorts the wave by ``make_sort_key``,
-    which never changes the image.
+    device; kernels/bvh_packet2.make_packet_trace2, K6) instead of brute
+    force. Then the step traces the image in ``PACKET_TILE`` square pixel
+    tiles when the tile divides both sides, so that K6's
+    1024-ray packets are compact screen tiles (sfvp_tpu wavefront.py
+    :704-746); and, when ``cfg.sort_bounce_rays`` is on, every bounce
+    after the first sorts the wave by ``make_sort_key``. Neither changes a
+    pixel's colour sum.
 
     With ``cfg.use_nee`` the scene's area lights are sampled at every hit
     (integrate/lights.py, the table built once here) and their shadow rays
     traced by ``occlusion_fn(o, d, t_max, active) -> (N,) bool``
-    (kernels/bvh_packet.make_packet_occlusion, K4 on a CUDA device), or by
-    brute force without it.
+    (kernels/bvh_packet.make_packet_occlusion, K4 on a CUDA device); with
+    none, by the payload trace (``payload_occluded``) or, without one
+    either, by brute force.
+
+    ``render_step.render_pixels(px, py, frame) -> (color_sum, segs)``
+    traces ``cfg.spp_per_step`` samples of step ``frame`` for each of the
+    (N,) GLOBAL pixels (px, py): per-pixel colour sums (a tuple of three
+    (N,) tensors) and the int64 total of traced segments.
     """
     require_slice(cfg, scene)
     gshape = global_shape if global_shape is not None else (cfg.height,
@@ -532,28 +563,46 @@ def make_render_step(cfg: RenderConfig, scene,
     dev = scene.device
     lights = build_light_table_from_buffers(scene) if cfg.use_nee else None
     if trace_payload_fn is None:
-        surface, sort_key = brute_surface(cfg, scene), None
+        surface, sort_key, ts = brute_surface(cfg, scene), None, 0
     else:
         surface = payload_surface(cfg, trace_payload_fn)
         sort_key = make_sort_key(cfg, scene)
+        ts = PACKET_TILE
+        if occlusion_fn is None:
+            occlusion_fn = payload_occluded(trace_payload_fn)
 
-    def render_step(state: RenderState, row0: int = 0) -> RenderState:
-        h, w = state.accum.shape[0], state.accum.shape[1]
-        n = h * w
-        idx = torch.arange(n, device=dev)
-        px = (idx % w).repeat(chunk)
-        py = (idx // w + row0).repeat(chunk)
+    def render_pixels(px, py, frame: int):
+        n = px.shape[0]
+        pxw, pyw = px.repeat(chunk), py.repeat(chunk)
 
         def wave(chunk_idx):
             s_ids = (chunk_idx * chunk
                      + torch.arange(chunk, device=dev)).repeat_interleave(n)
-            color, seg = trace_wave(cfg, scene, px, py, s_ids, state.frame,
+            color, seg = trace_wave(cfg, scene, pxw, pyw, s_ids, frame,
                                     gshape, has_mirrors=mirrors,
                                     surface=surface, sort_key=sort_key,
                                     lights=lights, occluded=occlusion_fn)
             return (*color, seg)
 
-        color_sum, segs = sum_chunks(cfg, n, wave, dev)
+        return sum_chunks(cfg, n, wave, dev)
+
+    def render_step(state: RenderState, row0: int = 0) -> RenderState:
+        h, w = state.accum.shape[0], state.accum.shape[1]
+        idx = torch.arange(h * w, device=dev)
+        swizzle = ts > 0 and h % ts == 0 and w % ts == 0
+        if swizzle:
+            # wave slot i is pixel i % ts^2 of tile i // ts^2, row-major
+            tile, within = idx // (ts * ts), idx % (ts * ts)
+            px = (tile % (w // ts)) * ts + within % ts
+            py = (tile // (w // ts)) * ts + within // ts
+        else:
+            px, py = idx % w, idx // w
+        color_sum, segs = render_pixels(px, py + row0, state.frame)
+        if swizzle:
+            pix = py * w + px
+            color_sum = tuple(torch.empty_like(c).index_copy_(0, pix, c)
+                              for c in color_sum)
         return accumulate(state, color_sum, segs, cfg.spp_per_step)
 
+    render_step.render_pixels = render_pixels
     return render_step

@@ -47,6 +47,10 @@ NVCC_FLAGS = (
 MAX_KERNEL_TRIS = 480
 # a ray's traversal stack in the BVH kernels (csrc/wide_bvh.cuh kMaxStack)
 MAX_WIDE_STACK = 256
+# K6's packet stack (max_stack + leaf_q entries, csrc/packet_trace2.cu
+# kPacketStack) and leaf queue (kMaxLeafQ), in shared memory
+MAX_PACKET_STACK = 512
+MAX_LEAF_Q = 256
 # child refs are stored as float32 in the node rows: exact below 2**24
 MAX_WIDE_ROWS = 1 << 24
 # K3's and K4's ray count is a C int (their plane offsets are size_t)
@@ -212,10 +216,15 @@ def library() -> ctypes.CDLL:
                      (lib.sfvp_tlas_occlusion, TwoLevelParams)):
         fn.argtypes = [ctypes.POINTER(tree), ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    # K6 takes the leaf queue's capacity after the ray count
+    lib.sfvp_packet_trace2.argtypes = [
+        ctypes.POINTER(WideParams), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     for fn in (lib.sfvp_wave_render, lib.sfvp_regen_render,
                lib.sfvp_bvh_regen_render, lib.sfvp_tlas_regen_render,
                lib.sfvp_bvh_trace, lib.sfvp_bvh_occlusion,
-               lib.sfvp_tlas_trace, lib.sfvp_tlas_occlusion):
+               lib.sfvp_tlas_trace, lib.sfvp_tlas_occlusion,
+               lib.sfvp_packet_trace2):
         fn.restype = ctypes.c_int
     return lib
 
@@ -246,11 +255,11 @@ def launch(fn_name: str, scene, params: Params, has_mirrors: bool,
     return (*outs, segs)
 
 
-def _launch_wave(fn_name: str, wp, rays, out):
+def _launch_wave(fn_name: str, wp, rays, out, *extra):
     """Launch a per-ray BVH kernel (K3, K4 with WideParams; K7, K8 with
-    TwoLevelParams) over the (7, N) ray planes into ``out`` on the current
-    stream of the rays' device. N goes to the kernel as a C int, so a wave
-    holds fewer than 2**31 rays."""
+    TwoLevelParams), or K6 with ``extra`` = (leaf_q,), over the (7, N) ray
+    planes into ``out`` on the current stream of the rays' device. N goes
+    to the kernel as a C int, so a wave holds fewer than 2**31 rays."""
     n = rays.shape[1]
     if n >= MAX_WAVE_RAYS:
         raise ValueError(f"a wave holds fewer than {MAX_WAVE_RAYS} rays "
@@ -258,7 +267,8 @@ def _launch_wave(fn_name: str, wp, rays, out):
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         err = getattr(library(), fn_name)(
-            ctypes.byref(wp), rays.data_ptr(), n, out.data_ptr(), stream)
+            ctypes.byref(wp), rays.data_ptr(), n, *extra, out.data_ptr(),
+            stream)
     check_launch(fn_name, err)
     return out
 
@@ -267,6 +277,13 @@ def launch_bvh_trace(wp: "WideParams", rays):
     """K3: (7, N) ray planes in, (19, N) payload planes out."""
     return _launch_wave("sfvp_bvh_trace", wp, rays, torch.empty(
         (19, rays.shape[1]), dtype=torch.float32, device=rays.device))
+
+
+def launch_packet_trace2(wp: "WideParams", rays, leaf_q: int):
+    """K6: (7, N) ray planes in, (19, N) payload planes out, one block per
+    packet of 1024 rays with a leaf queue of ``leaf_q`` entries."""
+    return _launch_wave("sfvp_packet_trace2", wp, rays, torch.empty(
+        (19, rays.shape[1]), dtype=torch.float32, device=rays.device), leaf_q)
 
 
 def launch_bvh_occlusion(wp: "WideParams", rays):
@@ -292,14 +309,18 @@ def check_launch(fn_name: str, err: int) -> None:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
 
 
-def _check_tables(what: str, max_stack: int, tables) -> None:
+def _check_tables(what: str, max_stack: int, tables,
+                  leaf_q: int = 0) -> None:
     """What the BVH kernels take: contiguous float32 (rows, 128) tables on
     a CUDA device, fewer than 2**24 rows each (refs are float32),
-    max_stack within the kernels' stack."""
-    if max_stack > MAX_WIDE_STACK:
+    max_stack within the kernels' stack; for K6 (``leaf_q``), max_stack +
+    leaf_q within its packet stack."""
+    cap = MAX_PACKET_STACK if leaf_q else MAX_WIDE_STACK
+    if max_stack + leaf_q > cap:
+        spill = f" + leaf_q {leaf_q}" if leaf_q else ""
         raise ValueError(
-            f"{what} max_stack {max_stack} exceeds the kernels' "
-            f"traversal stack of {MAX_WIDE_STACK} entries")
+            f"{what} max_stack {max_stack}{spill} exceeds the kernels' "
+            f"traversal stack of {cap} entries")
     for name, t in tables:
         if t.shape[0] >= MAX_WIDE_ROWS:
             raise ValueError(f"{what} {name} has {t.shape[0]} rows; refs "
@@ -314,12 +335,12 @@ def _check_tables(what: str, max_stack: int, tables) -> None:
                              f"{tuple(t.shape)}")
 
 
-def wide_params(dw, t_min: float) -> WideParams:
+def wide_params(dw, t_min: float, leaf_q: int = 0) -> WideParams:
     """WideParams of a device BVH (kernels/bvh_packet.py DeviceWide) on a
-    CUDA device, after ``_check_tables``. ``.device`` rides along for the
-    launch."""
+    CUDA device, after ``_check_tables`` (for K6 with its ``leaf_q``).
+    ``.device`` rides along for the launch."""
     _check_tables("wide BVH", dw.max_stack,
-                  (("nodes", dw.nodes), ("tris", dw.tris)))
+                  (("nodes", dw.nodes), ("tris", dw.tris)), leaf_q)
     wp = WideParams(nodes=dw.nodes.data_ptr(), tris=dw.tris.data_ptr(),
                     n_nodes=dw.nodes.shape[0], n_leaf_rows=dw.tris.shape[0],
                     max_stack=dw.max_stack, t_min=f32(t_min),

@@ -25,6 +25,7 @@ ray. Counterpart of sfvp_tpu's make_packet_occlusion (bvh_packet.py:433).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -91,7 +92,13 @@ class DeviceWide(NamedTuple):
 
 def device_wide(wide: WideBVH, device) -> DeviceWide:
     """Copy a host WideBVH's tables to ``device``. Child refs are float32
-    in the rows, so each table must have fewer than 2**24 rows."""
+    in the rows, so each table must have fewer than 2**24 rows. A textured
+    tree (``tris_aux``, the payload's texture planes) raises until
+    ROADMAP.md A.13."""
+    if wide.tris_aux is not None:
+        raise NotImplementedError(
+            "textured wide BVHs (the tris_aux planes) are not ported to "
+            "sfvp_tpu_torch yet (ROADMAP.md A.13)")
     for name, a in (("nodes", wide.nodes), ("tris", wide.tris)):
         if a.shape[0] >= build.MAX_WIDE_ROWS:
             raise ValueError(f"wide BVH {name} has {a.shape[0]} rows; refs "
@@ -105,16 +112,17 @@ def device_wide(wide: WideBVH, device) -> DeviceWide:
         max_stack=int(wide.max_stack))
 
 
-def _leaf_tests(tris, rows, ray, bt):
-    """Moller-Trumbore of rays (7-tuple of (L,) planes) against the 8
-    slots of their leaf rows; returns the first slot of least valid t and
-    that t, u, v (t = +inf where no slot is valid). Of equal t the lowest
-    slot wins, as the kernel's strict ``t < best`` scan over the slots."""
-    ox, oy, oz, dx, dy, dz, tmax = (c[:, None] for c in ray)
-    s = tris[rows].view(-1, 8, 16)
-    t0x, t0y, t0z = s[:, :, 0], s[:, :, 1], s[:, :, 2]
-    e1x, e1y, e1z = s[:, :, 3] - t0x, s[:, :, 4] - t0y, s[:, :, 5] - t0z
-    e2x, e2y, e2z = s[:, :, 6] - t0x, s[:, :, 7] - t0y, s[:, :, 8] - t0z
+def _slot_tests(s, ray, t_min, bt):
+    """Moller-Trumbore of rays against the 8 triangle slots ``s`` (..., 8,
+    16) of their leaf rows; ``ray`` the 7 planes ox oy oz dx dy dz tmax
+    and ``bt`` each ray's best t, all broadcastable against (..., 8).
+    Returns the first slot of least valid t and that t, u, v over the last
+    dimension (t = +inf where no slot is valid). Of equal t the lowest slot
+    wins, as the kernels' strict ``t < best`` scan over the slots."""
+    ox, oy, oz, dx, dy, dz, tmax = ray
+    t0x, t0y, t0z = s[..., 0], s[..., 1], s[..., 2]
+    e1x, e1y, e1z = s[..., 3] - t0x, s[..., 4] - t0y, s[..., 5] - t0z
+    e2x, e2y, e2z = s[..., 6] - t0x, s[..., 7] - t0y, s[..., 8] - t0z
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x
@@ -129,12 +137,51 @@ def _leaf_tests(tris, rows, ray, bt):
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
     ok = (nonzero & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-          & (t > ray.t_min) & (t < tmax) & (t < bt[:, None]))
+          & (t > t_min) & (t < tmax) & (t < bt))
     t = torch.where(ok, t, float("inf"))
-    slot = torch.argmin(t, dim=1, keepdim=True)
-    return (slot.squeeze(1), torch.gather(t, 1, slot).squeeze(1),
-            torch.gather(u, 1, slot).squeeze(1),
-            torch.gather(v, 1, slot).squeeze(1))
+    slot = torch.argmin(t, dim=-1, keepdim=True)
+    return (slot.squeeze(-1), torch.gather(t, -1, slot).squeeze(-1),
+            torch.gather(u, -1, slot).squeeze(-1),
+            torch.gather(v, -1, slot).squeeze(-1))
+
+
+def _leaf_tests(tris, rows, ray, bt):
+    """``_slot_tests`` of rays (a _Rays of (L,) planes) against the 8
+    slots of their leaf rows ``rows`` (L,)."""
+    return _slot_tests(tris[rows].view(-1, 8, 16),
+                       tuple(c[:, None] for c in ray), ray.t_min,
+                       bt[:, None])
+
+
+def _child_codes(f):
+    """The stack codes of the children of node rows, from their (..., 8
+    field, 8 child) prefix: ref+1 (node), -(ref+1) (leaf row), the
+    instance code of a child tagged as an instance (accel/tlas.py
+    TAG_INSTANCE, only in a two-level TLAS), 0 (empty slot)."""
+    ref = f[..., 6, :].to(torch.int64)
+    tag = f[..., 7, :]
+    return torch.where(
+        tag > 2.5, -(INSTANCE_CODE_BASE + ref + 1),
+        torch.where(tag > 1.5, -(ref + 1), torch.where(tag > 0.5, ref + 1, 0)))
+
+
+@functools.lru_cache(maxsize=None)
+def _net_index(device: torch.device):
+    """NET_LAYERS as (a, b) index tensors on ``device``."""
+    return [tuple(torch.tensor(side, device=device) for side in zip(*layer))
+            for layer in NET_LAYERS]
+
+
+def _sort_desc(key, code):
+    """Sort each row's 8 (key, code) pairs by key, descending, in place,
+    through the JAX package's 19-comparator network."""
+    for a, b in _net_index(key.device):
+        ka, kb, ca, cb = key[:, a], key[:, b], code[:, a], code[:, b]
+        swap = ka < kb
+        key[:, a] = torch.where(swap, kb, ka)
+        key[:, b] = torch.where(swap, ka, kb)
+        code[:, a] = torch.where(swap, cb, ca)
+        code[:, b] = torch.where(swap, ca, cb)
 
 
 def _node_children(nodes, node_idx, ray, bt, t_min, ordered=True):
@@ -159,25 +206,12 @@ def _node_children(nodes, node_idx, ray, bt, t_min, ordered=True):
     tfar = torch.minimum(
         torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
         torch.minimum(torch.maximum(tz0, tz1), limit))
-    ref = f[:, 6].to(torch.int64)
-    tag = f[:, 7]
-    code = torch.where(
-        tag > 2.5, -(INSTANCE_CODE_BASE + ref + 1),
-        torch.where(tag > 1.5, -(ref + 1), torch.where(tag > 0.5, ref + 1, 0)))
+    code = _child_codes(f)
     push = (code != 0) & (tnear <= tfar)
     key = torch.where(push, tnear, float("-inf"))
     code = torch.where(push, code, 0)
-    if not ordered:
-        return code
-    for layer in NET_LAYERS:
-        a = torch.tensor([c[0] for c in layer], device=key.device)
-        b = torch.tensor([c[1] for c in layer], device=key.device)
-        ka, kb, ca, cb = key[:, a], key[:, b], code[:, a], code[:, b]
-        swap = ka < kb
-        key[:, a] = torch.where(swap, kb, ka)
-        key[:, b] = torch.where(swap, ka, kb)
-        code[:, a] = torch.where(swap, cb, ca)
-        code[:, b] = torch.where(swap, ca, cb)
+    if ordered:
+        _sort_desc(key, code)
     return code
 
 
@@ -270,11 +304,19 @@ def packet_trace_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
             _push(stack, sp, ni, _node_children(
                 dw.nodes, code[~leaf] - 1, ray.take(ni), bt[ni], t_min))
         _count(counts, ni, li)
-    out = torch.zeros((N_PAYLOAD, n), dtype=torch.float32, device=dev)
+    return payload_planes(dw.tris, bt, bu, bv, brow, bslot)
+
+
+def payload_planes(tris, bt, bu, bv, brow, bslot) -> torch.Tensor:
+    """The (19, N) payload planes of rays whose best hit is (t, u, v) on
+    slot ``bslot`` of leaf row ``brow`` (-1: a miss, every plane but t
+    zero)."""
+    out = torch.zeros((N_PAYLOAD, bt.shape[0]), dtype=torch.float32,
+                      device=bt.device)
     out[0], out[1], out[2] = bt, bu, bv
     hit = torch.nonzero(brow >= 0).squeeze(1)
-    lanes = 16 * bslot[hit][:, None] + torch.arange(16, device=dev)
-    out[3:, hit] = torch.gather(dw.tris[brow[hit]], 1, lanes).T
+    lanes = 16 * bslot[hit][:, None] + torch.arange(16, device=bt.device)
+    out[3:, hit] = torch.gather(tris[brow[hit]], 1, lanes).T
     return out
 
 

@@ -179,11 +179,12 @@ def test_unknown_builder_raises():
     dict(), dict(sort_bounce_rays=False), dict(sort_material_key=False),
     dict(sort_bounce_rays=False, sort_material_key=False,
          traversal="bvh", megakernel_regen=False),
-    dict(sort_bounce_rays=True)])
+    dict(sort_bounce_rays=True), dict(stream_tris=True),
+    dict(stream_tris=False), dict(stream_tris=True, sort_bounce_rays=True)])
 def test_config_hash_ignores_sort_knobs(knobs):
-    """The restored sort knobs are execution knobs: the hash equals
-    sfvp_tpu's for every setting, and equals the hash without them. The
-    port sorts only when asked (it loses on the H100, config.py)."""
+    """The restored sort knobs, and the stream knob, are execution knobs: the hash equals sfvp_tpu's for every setting, and
+    equals the hash without them. The port sorts only when asked (it loses
+    on the H100, config.py)."""
     kw = dict(width=64, height=32, sampling="cosine", use_rr=True)
     a = J.RenderConfig(**kw, **knobs).config_hash()
     b = T.RenderConfig(**kw, **knobs).config_hash()

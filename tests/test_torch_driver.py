@@ -133,7 +133,10 @@ def test_cli_writes_png(tmp_path):
     # unported feature beside them the CLI still raises
     ["--lens-radius", "0.1", "--nee"], ["--env-map", "sky.hdr", "--mis"],
     ["--env-map", "sky.hdr"], ["--lens-radius", "0.1"],
-    ["--focus-dist", "3.0"], ["--dist"], ["--adaptive", "0.5"],
+    ["--focus-dist", "3.0"], ["--dist"],
+    # --adaptive renders now (tests/test_torch_adaptive.py); with an
+    # unported feature beside it the CLI still raises
+    ["--lens-radius", "0.1", "--adaptive", "0.5"],
     # procedural scenes render now; an unported feature on one still raises
     ["--nee", "--lens-radius", "0.1", "--scene", "sphere"],
     # and so does the instanced scene (tests/test_torch_instances.py)
