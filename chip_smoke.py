@@ -5,8 +5,10 @@
 Phases, each of which raises (exit code 1, no result line) on failure:
   1. device   a CUDA device of compute capability 9.0 (Hopper), and the
               card's name and power limit from nvidia-smi;
-  2. build    nvcc builds the kernels K1-K9 from
-              sfvp_tpu_torch/csrc/, one nvcc per source in parallel;
+  2. build    nvcc builds the kernels K1-K9, P3 and P4 from
+              sfvp_tpu_torch/csrc/, one nvcc per source in parallel,
+              while the host builds the wide BVHs of the 100k sphere
+              and the city (phases 7-16);
   3. twins    each kernel against its plain PyTorch twin at 256x256,
               depth 8: parity at 8 spp, cosine + Russian roulette, and a
               Cornell variant with mirror faces;
@@ -28,7 +30,7 @@ The large-scene path (slice 2: the wide BVH, kernels K3 and K5), over the
   7. bvh twins   K3 against its twin on a 256x256 camera wave, a bounce
                  wave and a wave of random rays: at least 99.99% of rays
                  on the same triangle, every payload plane equal there;
-                 K5 against its twin at 128x128, 4 spp, depth 8, cosine +
+                 K5 against its twin at 128x128, 1 spp, depth 8, cosine +
                  RR, on the sphere and on the mirror Cornell Box with
                  traversal="bvh";
   8. bvh oracle  K5 on the Cornell Box (traversal="bvh") at 128x128,
@@ -43,8 +45,9 @@ The large-scene path (slice 2: the wide BVH, kernels K3 and K5), over the
                  bounce wave) at the main path's shape, CUDA events, each
                  beside its twin, and K5 held to its twin there;
  11. bvh 500k    K5 against its twin on the 500k sphere's LBVH tree at
-                 512x512, 8 spp, depth 8, cosine + RR, and K5's time per
-                 pixel and per segment on the 500k and 100k trees there;
+                 256x256, 1 spp, depth 8, cosine + RR, and K5's time per
+                 pixel on the 500k and 100k trees at 512x512, 8 spp, and
+                 per segment at 256x256, 1 spp;
  12. ray sort    the wavefront step over K3 at the main path's shape with
                  the per-bounce ray sort on and off: times, same image.
 
@@ -53,7 +56,7 @@ kernel K4), cosine + RR, on the Cornell Box and on the city of ``--scene
 city --scene-tris 100000`` (82,782 triangles, 1,134 of them emissive):
  13. nee twins   K1 against its twin at 256x256, 8 spp, depth 8, NEE and
                  NEE + MIS, on the Cornell Box and the mirror Cornell; K5
-                 against its twin at 128x128, 4 spp on the city and on the
+                 against its twin at 128x128, 1 spp on the city and on the
                  Cornell Box with traversal="bvh"; K4 against its twin on
                  the shadow waves of one wavefront step on the city and on
                  a random wave: every ray equal;
@@ -79,7 +82,7 @@ and a lamp instance, cosine + RR + NEE + MIS):
                  wave and a random wave (at least 99.99% of rays on the
                  same triangle, every plane equal there); K8 on every ray
                  of the lit field's first two shadow waves and a random
-                 wave; K9 at 128x128, 4 spp, depth 8 on both fields;
+                 wave; K9 at 128x128, 1 spp, depth 8 on both fields;
  18. tlas cross  K9 against the wavefront loop over K7 at 256x256, 8 spp
                  (relative RMSE <= 1e-5, equal segments); K9 on the
                  instances against K5 on the flattened scene (image means
@@ -110,12 +113,12 @@ K6 with its leaf queue), on the 500k sphere of ``--scene sphere
 streaming threshold, so the wavefront loop traces it through K6) and on
 the city with ``stream_tris=True``:
  21. k6 twins    K6 against its twin on every plane of every ray: the
-                 swizzled 256x256 camera wave, a bounce wave, a random
+                 swizzled 64x64 camera wave, a bounce wave, a random
                  wave, the camera wave with a partial last packet and
-                 with an active mask, one run with a 2-entry leaf queue
-                 (the spill path), and the shadow wave of one NEE step on
+                 with an active mask, the camera wave with a 2-entry leaf
+                 queue (the spill path), and the shadow wave of one NEE step on
                  the city; K6 and K3 on the same triangle on at least
-                 99.99% of the camera and bounce rays;
+                 99.99% of the rays of 128x128 camera and bounce waves;
  22. adaptive    at 256x256, 8 spp, depth 8, cosine + RR: the adaptive
      cross       sampler's uniform step over K6 against the Renderer's
                  wavefront step over K3; an adaptive step over K6 and one
@@ -140,6 +143,69 @@ the city with ``stream_tris=True``:
                  the bound of the closest-hit work, from K3's twin's
                  per-ray pops, with the bound of K6's own union walk
                  printed beside it; K6 held to its twin on every ray.
+The streamed route sorts its bounce rays by default since slice 6
+(integrate/wavefront.py sort_rays), so phase 23 also takes the Renderer's
+K6 step unsorted, and phase 24 times the third-bounce wave sorted beside
+the unsorted one (K6 and K3; the twin runs on the unsorted wave, as in
+slice 5). Cut in slice 6 to keep the script's time (a twin walks in
+passes, so its time follows its samples and its longest walk more than
+its pixels):
+  - phase 21's twin waves are 64x64 (K6_TWIN_SIZE; 256x256 before), its
+    K6-vs-K3 waves 128x128 (K3_SAME_SIZE), and its 2-entry leaf queue
+    runs on the camera wave (on the bounce wave before);
+  - phase 11's twins are 256x256 at 1 spp (BIG_TWIN_SIZE; 512x512 at 8
+    spp before);
+  - phase 12 takes one round (SORT_ROUNDS; two before);
+  - the kernels build while the 100k sphere's and the city's BVHs do
+    (phase 2; one after the other before);
+  - phases 7, 13 and 17 hold K5 and K9 to their twins at 1 spp
+    (EARLY_TWIN_SPP; 4 before);
+  - phase 23's steps without the sort and over K3 reuse the wide BVH of
+    its Renderer step over K6 (each built its own before);
+  - phase 24 runs no twin on the sorted third-bounce wave (its ~37 live
+    packets took the twin 20-30 s).
+
+Environment maps and map_Kd textures (slice 6: env sky, env NEE and
+textures in K1 and K5, the texture planes of K3 and K6, the fetch kernels
+P3 and P4, K1 and K2 past 480 triangles), on the Cornell Box with a 64 x
+32 sky or bench.py's sun map, a Cornell Box OBJ written with vt and
+map_Kd on its back wall, and the 100k sphere with bench.py's checker (its
+wide tree collapsed again from the sphere's binary tree with the vt rows),
+its sun map and its two 2048 x 1024 maps:
+ 25. env twins   K1 at 256x256, 8 spp, depth 8 with the sky, with the sun
+                 under NEE + MIS + RR and textured; K5 at 128x128, 4 spp
+                 with the checker, the sun under NEE + MIS + RR and the
+                 2048 x 1024 sun (the pooled proposal); K3 and K6 on every
+                 plane of a textured 256x256 camera and bounce wave; P3 on
+                 1M directions at 32 x 64, 128 x 256, 256 x 512 and
+                 2048 x 1024 (max abs < 3e-5 x the largest texel,
+                 probe_envfetch.py:106) and P4's four variants at 32 x 64
+                 and 2048 x 1024 (full bitwise P3, half within 1e-3 of it);
+                 K1 and K2 at 128x128 on spheres of 1,012 triangles (the
+                 table in opted-in shared memory) and 2,964 (in tiles);
+ 26. env main    the CLI with --env-map on the Cornell Box at 1024x1024,
+                 32 spp, depth 8, 4 steps, with and without --nee --mis
+                 --rr (K1 only); the CLI --scene sphere --scene-tris 100000
+                 --sampling cosine --rr --nee --mis --env-map at 1024x1024,
+                 8 spp (K5 only, with its set-up seconds); bench.py's rows
+                 tex_100k_512, env_nee_100k_512, env_big2048_100k_512 and
+                 env_big2048_nee_100k_512 at 512x512, 8 spp, depth 8, its
+                 camera and sky, through select_render_step over the
+                 prebuilt trees, the Renderer's route (K5 only): one
+                 warm-up and 3 timed steps each, step ms and Mrays/s;
+ 27. env wave-   one step at 1024x1024, 8 spp with megakernel_regen=False:
+     front       the textured sphere over K3 (64 launches) and over K6,
+                 the sun under NEE + MIS over K3 and K4 (64 each), each
+                 within relative RMSE 1e-5 of K5's step, equal segments;
+ 28. env times   K1 per env Cornell step (with and without NEE), K5 per
+                 step of each bench row, K3 per textured first-bounce
+                 launch, P3 per 1M-direction launch at each map size and P4
+                 per variant at 32 x 64 and 2048 x 1024 (queued behind a
+                 sleeping kernel, so that the host's time per call does
+                 not pace them; P3 also a call at the host's pace), CUDA
+                 events, each beside its twin (held to it) and its bound;
+                 P3's bound the larger of (24 n + 12 H W) bytes over 3.35
+                 TB/s and n x ENV_FETCH_OPS over 67 TFLOP/s.
 
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}.
@@ -173,8 +239,19 @@ SPHERE_TRIS, BIG_TRIS = 100_000, 500_000
 BVH_W = BVH_H = 1024
 BVH_SPP, BVH_DEPTH, BVH_STEPS, K3_STEPS, BIG_STEPS = 8, 8, 4, 1, 2
 BIG_W = BIG_H = 512
+# phase 11's twins, cut in slice 6 to keep the script's time (512x512
+# before)
+BIG_TWIN_SIZE = 256
 BVH_TWIN_SIZE, BVH_TWIN_SPP, K5_K1_SIZE = 128, 4, 256
-SORT_ROUNDS, SORT_STEPS = 2, 2
+# phases 7, 13 and 17 hold K5 and K9 to their twins at BVH_TWIN_SIZE^2 and
+# EARLY_TWIN_SPP spp, phase 11 at BIG_TWIN_SIZE^2: 1 spp since slice 6
+# (BVH_TWIN_SPP and 8 before; phase 25 keeps BVH_TWIN_SPP), to keep the
+# script's time: the twins walk one wave a sample, so their time follows
+# spp, not pixels; phases 10, 16 and 20 hold the kernels at the main
+# path's 8 spp
+EARLY_TWIN_SPP = 1
+# phase 12: one round since slice 6 (two before), to keep the script's time
+SORT_ROUNDS, SORT_STEPS = 1, 2
 K3_SAME_TRI = 0.9999
 K5_TWIN_REL_RMSE, K5_K1_REL_RMSE = 1e-5, 1e-5
 # bounds: the H100 SXM data sheet's HBM rate and FP32 (non-tensor) peak
@@ -223,9 +300,41 @@ INST_OPS, WORLD_OPS = 45, 54
 # at CROSS_SIZE^2 with BVH_SPP spp
 ADAPT_FRAC, ADAPT_TILE, ADAPT_WARMUP, ADAPT_STEPS = 0.25, 16, 2, 6
 CROSS_SIZE, CITY_ADAPT_STEPS = 256, 2
+# phase 21's twin waves: 64x64 since slice 6 (256x256 in slice 5), to
+# keep the script's time as its phases grow: the twin walks all packets of
+# a wave in one loop, as many passes as its longest packet walk needs, 4
+# packets of 1,024 rays here, the last one partial in one case; K6 and K3
+# are held on the same triangle on K3_SAME_SIZE^2 waves, where one ray
+# apart is below the 1e-4 share K3_SAME_TRI allows
+K6_TWIN_SIZE, K3_SAME_SIZE = 64, 128
 ADAPT_CLI = ["--scene", "sphere", "--scene-tris", str(BIG_TRIS),
              "--sampling", "cosine", "--rr", "--spp", str(BVH_SPP),
              "--adaptive", str(ADAPT_FRAC), "--steps", str(ADAPT_STEPS)]
+# slice 6, environment maps and textures: K1's twins at ENV_TWIN_SIZE^2 with
+# ENV_TWIN_SPP spp; the CLI's env renders ENV_MAIN_STEPS steps; bench.py's
+# four env/texture rows at BENCH_SIZE^2, 8 spp, BENCH_STEPS timed steps
+# after one warm-up; P3 on FETCH_N directions at each of FETCH_SIZES, P4 at
+# ABLATE_SIZES; K1 and K2 past 480 triangles on spheres of BRUTE_LATS
+# rings (1,012 and 2,964 triangles) at BRUTE_SIZE^2, BRUTE_SPP spp
+ENV_TWIN_SIZE, ENV_TWIN_SPP, ENV_MAIN_STEPS = 256, 8, 4
+BENCH_SIZE, BENCH_STEPS = 512, 3
+FETCH_N = 1 << 20
+FETCH_SIZES = ((32, 64), (128, 256), (256, 512), (1024, 2048))
+ABLATE_SIZES = ((32, 64), (1024, 2048))
+BRUTE_LATS, BRUTE_SIZE, BRUTE_SPP = (23, 39), 128, 4
+# a wavefront step against K5's step of the same seed: the same streams,
+# the NEE terms summed in two float orders
+WF_K5_REL_RMSE = 1e-5
+# FP32 operations of one environment fetch, counted from csrc/common.cuh
+# env_lookup: u, v and the band clamp (12), the taps and weights (27), the
+# three channel blends (21), atan2f and acosf as 20 and 15; of P4's trig
+# variant (the fetch's u and v, u + v) and of noread (the fetch with the
+# blends replaced by the weights' sum); rounded down
+ENV_FETCH_OPS, ENV_TRIG_OPS, ENV_NOREAD_OPS = 90, 45, 75
+# P3 and P4 take less time on the card than their wrapper on the host, so
+# they are timed queued behind torch.cuda._sleep of this many cycles
+# (~50 ms at the H100's clock; queued_ms)
+QUEUE_SLEEP_CYCLES = 100_000_000
 
 
 def check(cond, msg):
@@ -257,6 +366,29 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps, out
 
 
+def queued_ms(fn, reps):
+    """Mean device milliseconds of ``fn`` over ``reps`` runs, by CUDA
+    events, for a kernel shorter than its wrapper's host time: the runs
+    are queued behind a sleeping kernel, so the card runs them back to
+    back instead of at the pace the host issues them (cuda_ms)."""
+    fn()
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    marks[0].record()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    marks[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    marks[2].record()
+    torch.cuda.synchronize()
+    slept = marks[0].elapsed_time(marks[1])
+    check(host_ms < slept, f"the host queued {reps} runs in {host_ms:.3f} ms, "
+                           f"past the {slept:.3f} ms sleep")
+    return marks[1].elapsed_time(marks[2]) / reps
+
+
 def device_phase():
     phase("device")
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -273,11 +405,21 @@ def device_phase():
 
 
 def build_phase():
+    """nvcc builds the kernels while the host builds the wide BVHs of the
+    100k sphere and the city, which need no kernel; returns their
+    set-ups (scene_setup)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from sfvp_tpu_torch.kernels import build
 
-    phase("build")
+    phase(f"build, and meanwhile the {SPHERE_TRIS // 1000}k sphere's and the "
+          "city's wide BVHs")
     t0 = time.perf_counter()
-    lib = build.build()
+    with ThreadPoolExecutor(1) as pool:
+        lib = pool.submit(build.build)
+        sphere = scene_setup("sphere", SPHERE_TRIS)
+        city = scene_setup("city", CITY_TRIS, **NEE_FLAGS)
+        lib = lib.result()
     build.library()
     print(f"built {os.path.relpath(lib, ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -287,6 +429,7 @@ def build_phase():
             if any(k in line for k in ("Compiling entry", "registers",
                                        "stack frame")):
                 print("  ptxas:", line.strip())
+    return sphere, city
 
 
 def cornell_buffers(device, mirrors=False):
@@ -533,7 +676,7 @@ def scene_setup(name, tris, **cfg_kw):
     of about ``tris`` triangles with its view and sky, cosine + RR, on the
     card, with its wide BVH built once, and its light table."""
     from sfvp_tpu_torch import RenderConfig, upload
-    from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
+    from sfvp_tpu_torch.accel.wide import binary_bvh, build_wide, materials_array
     from sfvp_tpu_torch.cli import procedural_scene
     from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
     from sfvp_tpu_torch.kernels.bvh_packet import device_wide
@@ -544,7 +687,10 @@ def scene_setup(name, tris, **cfg_kw):
     scene, cfg = procedural_scene(name, tris, RenderConfig(**kw))
     buffers = upload(scene, device=DEVICE)
     t0 = time.perf_counter()
-    wide = build_wide_from_buffers(buffers)
+    # the binary tree is kept: the textured sphere of slice 6 collapses it
+    # again with its vt rows (textured_setup)
+    binary = binary_bvh(buffers)
+    wide = build_wide(binary, materials_array(buffers))
     lights = build_light_table_from_buffers(buffers)
     print(f"  {name}: {buffers.num_tris} triangles "
           f"({lights.num if lights else 0} emissive), wide BVH "
@@ -552,7 +698,7 @@ def scene_setup(name, tris, **cfg_kw):
           f"max_stack {wide.max_stack}, built in "
           f"{time.perf_counter() - t0:.2f} s")
     return dict(scene=scene, cfg=cfg, buffers=buffers, wide=wide,
-                dw=device_wide(wide, DEVICE), lights=lights)
+                dw=device_wide(wide, DEVICE), lights=lights, binary=binary)
 
 
 @contextlib.contextmanager
@@ -700,7 +846,7 @@ def bvh_twin_phase(sphere):
         bvh_regen_render, bvh_regen_render_plain)
 
     phase(f"bvh twins: K3 on {BVH_TWIN_SIZE * 2}^2-ray waves, K5 at "
-          f"{BVH_TWIN_SIZE}x{BVH_TWIN_SIZE}, {BVH_TWIN_SPP} spp, depth "
+          f"{BVH_TWIN_SIZE}x{BVH_TWIN_SIZE}, {EARLY_TWIN_SPP} spp, depth "
           f"{BVH_DEPTH}, cosine + RR")
     cfg, dw = sphere["cfg"], sphere["dw"]
     size = 2 * BVH_TWIN_SIZE
@@ -721,10 +867,10 @@ def bvh_twin_phase(sphere):
     mirror = cornell_buffers(DEVICE, mirrors=True)
     cases = {
         "sphere": (dw, False, dataclasses.replace(
-            cfg, width=n, height=n, spp_per_step=BVH_TWIN_SPP)),
+            cfg, width=n, height=n, spp_per_step=EARLY_TWIN_SPP)),
         "cornell_mirror": (
             device_wide(build_wide_from_buffers(mirror), DEVICE), True,
-            RenderConfig(width=n, height=n, spp_per_step=BVH_TWIN_SPP,
+            RenderConfig(width=n, height=n, spp_per_step=EARLY_TWIN_SPP,
                          max_depth=BVH_DEPTH, sampling="cosine",
                          use_rr=True, traversal="bvh")),
     }
@@ -735,7 +881,7 @@ def bvh_twin_phase(sphere):
         got = bvh_regen_render(w, 3, 0, **args)
         exp = bvh_regen_render_plain(w, 3, 0, **args)
         worst["K5"] = max(worst["K5"], compare(
-            f"K5 {case}", got, exp, BVH_TWIN_SPP, K5_TWIN_REL_RMSE))
+            f"K5 {case}", got, exp, EARLY_TWIN_SPP, K5_TWIN_REL_RMSE))
     return worst
 
 
@@ -774,6 +920,7 @@ def counters():
     from sfvp_tpu_torch.kernels.bvh_packet2 import packet_trace2
     from sfvp_tpu_torch.kernels.bvh_tlas import (
         two_level_occlusion, two_level_trace)
+    from sfvp_tpu_torch.kernels.envfetch import env_fetch, env_fetch_ablate
     from sfvp_tpu_torch.kernels.megakernel import wave_render
     from sfvp_tpu_torch.kernels.megakernel_bvh import (
         bvh_regen_render, tlas_regen_render)
@@ -783,7 +930,7 @@ def counters():
             "K4": packet_occlusion, "K5": bvh_regen_render,
             "K6": packet_trace2, "K7": two_level_trace,
             "K8": two_level_occlusion,
-            "K9": tlas_regen_render}
+            "K9": tlas_regen_render, "P3": env_fetch, "P4": env_fetch_ablate}
 
 
 def only(**launched):
@@ -951,28 +1098,32 @@ def big_sphere_phase(sphere):
     from sfvp_tpu_torch.kernels.megakernel_bvh import (
         bvh_regen_render, bvh_regen_render_plain)
 
-    phase(f"bvh 500k: K5 vs twin on the {BIG_TRIS}-triangle sphere at "
-          f"{BIG_W}x{BIG_H}, {BVH_SPP} spp, depth {BVH_DEPTH}, cosine + RR; "
-          "K5 on both trees at that size, CUDA events")
+    n, spp = BIG_TWIN_SIZE, EARLY_TWIN_SPP
+    phase(f"bvh 500k: K5 on the {BIG_TRIS}-triangle sphere and the 100k "
+          f"sphere at {BIG_W}x{BIG_H}, {BVH_SPP} spp, depth {BVH_DEPTH}, "
+          f"cosine + RR, CUDA events; each vs its twin at {n}x{n}, {spp} "
+          "spp")
     big = scene_setup("sphere", BIG_TRIS, width=BIG_W, height=BIG_H)
-    npix = BIG_W * BIG_H
     worst = 0.0
     for name, s in (("500k", big), ("100k", sphere)):
-        args = dict(cfg=dataclasses.replace(s["cfg"], width=BIG_W,
-                                            height=BIG_H),
-                    global_shape=(BIG_H, BIG_W), npix=npix, has_mirrors=False)
         dw = s["dw"]
-        ms, got = cuda_ms(lambda: bvh_regen_render(dw, 1, 0, **args), 10)
+        for w, k in ((BIG_W, BVH_SPP), (n, spp)):
+            args = dict(cfg=dataclasses.replace(s["cfg"], width=w, height=w,
+                                                spp_per_step=k),
+                        global_shape=(w, w), npix=w * w, has_mirrors=False)
+            ms, got = cuda_ms(lambda: bvh_regen_render(dw, 1, 0, **args), 10)
+            if w == BIG_W:
+                print(f"  K5 {name} tree: {ms:.3f} ms/step at {w}x{w} "
+                      f"({ms * 1e6 / (w * w):.2f} ns/pixel)")
         counts = {}
         plain, exp = cuda_ms(lambda: bvh_regen_render_plain(
             dw, 1, 0, counts=counts, **args), 1, warm=False)
-        mx = compare(f"K5 {name}", got, exp, BVH_SPP, K5_TWIN_REL_RMSE)
+        mx = compare(f"K5 {name}", got, exp, spp, K5_TWIN_REL_RMSE)
         worst = mx if name == "500k" else worst
         segs = int(exp[3].sum(dtype=torch.int64))
-        print(f"  K5 {name} tree: {ms:.3f} ms/step ({ms * 1e6 / npix:.2f} "
-              f"ns/pixel, {ms * 1e6 / segs:.3f} ns/segment), twin "
-              f"{plain:.1f} ms; {segs} segments, "
-              f"{counts['node_pops'] / segs:.3f} node and "
+        print(f"  K5 {name} tree at {n}x{n}, {spp} spp: {ms:.3f} ms/step "
+              f"({ms * 1e6 / segs:.3f} ns/segment), twin {plain:.1f} ms; "
+              f"{segs} segments, {counts['node_pops'] / segs:.3f} node and "
               f"{counts['leaf_pops'] / segs:.3f} leaf pops per segment")
     return worst, big
 
@@ -1040,7 +1191,7 @@ def nee_twin_phase(city):
 
     n, spp = NEE_TWIN_SIZE, NEE_TWIN_SPP
     phase(f"nee twins: K1 at {n}x{n}, {spp} spp, K5 at {BVH_TWIN_SIZE}x"
-          f"{BVH_TWIN_SIZE}, {BVH_TWIN_SPP} spp, depth 8, cosine + RR, NEE "
+          f"{BVH_TWIN_SIZE}, {EARLY_TWIN_SPP} spp, depth 8, cosine + RR, NEE "
           f"and NEE + MIS; K4 on {2 * BVH_TWIN_SIZE}^2-ray shadow waves")
     worst = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
     for mirrors in (False, True):
@@ -1063,11 +1214,11 @@ def nee_twin_phase(city):
     cornell = cornell_buffers(DEVICE)
     cases = {
         "city": (city["dw"], city["lights"], dataclasses.replace(
-            city["cfg"], width=n, height=n, spp_per_step=BVH_TWIN_SPP)),
+            city["cfg"], width=n, height=n, spp_per_step=EARLY_TWIN_SPP)),
         "cornell": (
             device_wide(build_wide_from_buffers(cornell), DEVICE),
             build_light_table_from_buffers(cornell),
-            RenderConfig(width=n, height=n, spp_per_step=BVH_TWIN_SPP,
+            RenderConfig(width=n, height=n, spp_per_step=EARLY_TWIN_SPP,
                          max_depth=BVH_DEPTH, traversal="bvh", **NEE_FLAGS)),
     }
     for case, (dw, lights, cfg) in cases.items():
@@ -1076,7 +1227,7 @@ def nee_twin_phase(city):
         got = bvh_regen_render(dw, 3, 0, **args)
         exp = bvh_regen_render_plain(dw, 3, 0, **args)
         worst["K5"] = max(worst["K5"], compare(
-            f"K5 nee {case}", got, exp, BVH_TWIN_SPP, K5_TWIN_REL_RMSE))
+            f"K5 nee {case}", got, exp, EARLY_TWIN_SPP, K5_TWIN_REL_RMSE))
 
     cfg, dw = city["cfg"], city["dw"]
     size = 2 * BVH_TWIN_SIZE
@@ -1357,7 +1508,7 @@ def tlas_twin_phase(field, lit):
     size, n = 2 * BVH_TWIN_SIZE, BVH_TWIN_SIZE
     phase(f"tlas twins: K7 on {size}^2-ray waves of the {FIELD_TRIS // 1000}k "
           f"instanced field, K8 on the lit field's shadow waves, K9 at {n}x{n}, "
-          f"{BVH_TWIN_SPP} spp, depth {BVH_DEPTH}: cosine, and cosine + RR + "
+          f"{EARLY_TWIN_SPP} spp, depth {BVH_DEPTH}: cosine, and cosine + RR + "
           "NEE + MIS on the lit field")
     wave = dict(width=size, height=size, spp_per_step=1)
     camera, bounce = capture_waves(dataclasses.replace(field["cfg"], **wave),
@@ -1376,13 +1527,13 @@ def tlas_twin_phase(field, lit):
     worst["K9"] = 0.0
     for case, s in (("field", field), ("lit field", lit)):
         args = dict(cfg=dataclasses.replace(s["cfg"], width=n, height=n,
-                                            spp_per_step=BVH_TWIN_SPP),
+                                            spp_per_step=EARLY_TWIN_SPP),
                     global_shape=(n, n), npix=n * n, has_mirrors=False,
                     lights=s["lights"])
         got = tlas_regen_render(s["dt"], 3, 0, **args)
         exp = bvh_regen_render_plain(s["dt"], 3, 0, **args)
         worst["K9"] = max(worst["K9"], compare(
-            f"K9 {case}", got, exp, BVH_TWIN_SPP, K5_TWIN_REL_RMSE))
+            f"K9 {case}", got, exp, EARLY_TWIN_SPP, K5_TWIN_REL_RMSE))
     return worst
 
 
@@ -1622,11 +1773,13 @@ def k6_twin_phase(big, city):
     from sfvp_tpu_torch.kernels.bvh_packet import packet_trace, ray_planes
     from sfvp_tpu_torch.kernels.bvh_packet2 import packet_trace2
 
-    size = CROSS_SIZE
+    size = K6_TWIN_SIZE
     phase(f"k6 twins: K6 vs its twin on {size}^2-ray waves of the "
           f"{BIG_TRIS // 1000}k sphere (camera, bounce, random, partial, "
-          "active, leaf_q 2) and the city's NEE shadow wave (stream_tris="
-          "True); K6 and K3 on the same triangle")
+          "active, camera with leaf_q 2) and the city's NEE shadow wave "
+          "(stream_tris="
+          f"True); K6 and K3 on the same triangle on {K3_SAME_SIZE}^2-ray "
+          "camera and bounce waves")
     cfg, dw, wide = big["cfg"], big["dw"], big["wide"]
     nbytes = wide.nodes.nbytes + wide.tris.nbytes
     print(f"  {BIG_TRIS // 1000}k sphere: wide BVH of {nbytes} bytes, "
@@ -1656,10 +1809,12 @@ def k6_twin_phase(big, city):
     for label, tree, rays, leaf_q in (
             ("camera", dw, camera, 64), ("bounce", dw, bounce, 64),
             ("random", dw, random, 64), ("partial", dw, partial, 64),
-            ("active", dw, active, 64), ("bounce", dw, bounce, 2),
+            ("active", dw, active, 64), ("camera", dw, camera, 2),
             ("city shadow", city["dw"], shadow, 64)):
         worst = max(worst, compare_k6(label, tree, cfg.t_min, rays, leaf_q))
-    for label, rays in (("camera", camera), ("bounce", bounce)):
+    wave = dict(width=K3_SAME_SIZE, height=K3_SAME_SIZE, spp_per_step=1)
+    whole = capture_waves(dataclasses.replace(cfg, **wave), big, (0, 1))
+    for label, rays in zip(("camera", "bounce"), whole):
         frac = same_triangle(packet_trace2(dw, cfg.t_min, rays),
                              packet_trace(dw, cfg.t_min, rays))
         print(f"  K6 vs K3 {label}: the same triangle on {frac:.6f} of "
@@ -1761,10 +1916,21 @@ def adaptive_main_path_phase(tmp, city):
         max_depth=BVH_DEPTH, sampling="cosine", use_rr=True,
         megakernel_regen=False))
     k3_cfg = dataclasses.replace(cfg, stream_tris=False)
+    # the streamed route sorts its bounce rays by default (sort_rays); the
+    # step is taken both ways, and over K3, on the first Renderer's tree
+    unsorted = dataclasses.replace(cfg, sort_bounce_rays=False)
+    first = {}
+
+    def renderer():
+        first["r"] = Renderer(cfg, scene, DEVICE)
+        return first["r"]
+
     for name, make, steps, kernels, (module, fn) in (
-            ("renderer_k6", lambda: Renderer(cfg, scene, DEVICE), 1,
+            ("renderer_k6", renderer, 1,
              dict(K6=per_step), (bvh_packet2, "packet_trace2")),
-            ("renderer_k3", lambda: Renderer(k3_cfg, scene, DEVICE), 1,
+            ("renderer_k6_unsorted", lambda: same_tree(first["r"], unsorted),
+             1, dict(K6=per_step), (bvh_packet2, "packet_trace2")),
+            ("renderer_k3", lambda: same_tree(first["r"], k3_cfg), 1,
              dict(K3=per_step), (bvh_packet, "packet_trace")),
             ("adaptive_city", lambda: AdaptiveRenderer(
                 dataclasses.replace(city["cfg"], stream_tris=True),
@@ -1780,8 +1946,9 @@ def adaptive_main_path_phase(tmp, city):
         in_k, img = timed_calls(module, [fn], lambda: r.run(
             steps, log_path=log, progress=False))
         runs[name] = read_counts()
-        print(f"  {name}: launches {runs[name]}; set-up: wide BVH built in "
-              f"{r.bvh_build_s:.2f} s")
+        built = ("reused" if r is not first["r"] and r.wide is first["r"].wide
+                 else f"built in {r.bvh_build_s:.2f} s")
+        print(f"  {name}: launches {runs[name]}; set-up: wide BVH {built}")
         check(runs[name] == only(**kernels), f"{name} launches {runs[name]}")
         recs = [json.loads(x) for x in open(log).read().splitlines()]
         check(len(recs) == steps, f"{len(recs)} log records")
@@ -1795,6 +1962,22 @@ def adaptive_main_path_phase(tmp, city):
               f"{in_k[fn] / step_ms:.1%}")
         check_image(name, img, BVH_H, BVH_W)
     return runs
+
+
+def same_tree(r, cfg):
+    """A copy of the Renderer ``r`` that renders ``cfg`` over r's scene
+    buffers and wide BVH, without building them again: its own step (the
+    route dispatch picks for ``cfg``) and its own state."""
+    import copy
+
+    from sfvp_tpu_torch import init_state
+    from sfvp_tpu_torch.dispatch import select_render_step
+
+    v = copy.copy(r)
+    v.cfg = cfg
+    v._step = select_render_step(cfg, r.buffers, wide=r.wide)
+    v.state = init_state(cfg.height, cfg.width, r.device)
+    return v
 
 
 def packet_ops(counts):
@@ -1822,7 +2005,11 @@ def k6_timing_phase(big):
     cfg, dw, wide = big["cfg"], big["dw"], big["wide"]
     one = dataclasses.replace(cfg, width=BVH_W, height=BVH_H, spp_per_step=1,
                               megakernel_regen=False)
+    # the streamed route sorts its bounce rays by default (sort_rays); the
+    # third-bounce wave is taken both ways
     first, third = capture_waves(one, big, (0, 2))
+    third_unsorted = capture_waves(dataclasses.replace(
+        one, sort_bounce_rays=False), big, (2,))[0]
     uni, ada = make_adaptive_steps(one, big["buffers"], frac=ADAPT_FRAC,
                                    tile=ADAPT_TILE, wide=wide)
     st = uni(uni(init_adaptive_state(BVH_H, BVH_W, DEVICE)))
@@ -1831,7 +2018,8 @@ def k6_timing_phase(big):
     check(adaptive.shape[1] == ada.pixels, f"adaptive wave {adaptive.shape}")
     nbytes_tree = tree_nbytes(wide)
     times, worst = {}, 0.0
-    for label, rays in (("first bounce", first), ("third bounce", third),
+    for label, rays in (("first bounce", first),
+                        ("third bounce unsorted", third_unsorted),
                         ("adaptive", adaptive)):
         ms, got = cuda_ms(lambda: packet_trace2(dw, cfg.t_min, rays), 10)
         counts = {}
@@ -1861,29 +2049,622 @@ def k6_timing_phase(big):
                                    f"{same}")
         times[label] = {"K6": (ms, plain) + b3, "K3": (ms3, plain3) + b3,
                         "K6 union walk": union}
+    # the same rays sorted, as the streamed route traces them: K6 and K3,
+    # no twin (its walk of the sorted wave's ~37 live packets takes ~20 s;
+    # phase 21 holds K6 to it on a sorted bounce wave)
+    rays = third
+    ms, got = cuda_ms(lambda: packet_trace2(dw, cfg.t_min, rays), 10)
+    ms3, got3 = cuda_ms(lambda: packet_trace(dw, cfg.t_min, rays), 10)
+    same = same_triangle(got, got3)
+    b3 = times["third bounce unsorted"]["K3"][2:]
+    print(f"  third bounce sorted: the same {rays.shape[1]} rays sorted; "
+          f"K6 {ms:.3f} ms/launch ({ms / b3[0]:.1f}x the bound), K3 "
+          f"{ms3:.3f} ms/launch; K6/K3 {ms / ms3:.2f}; sorted/unsorted K6 "
+          f"{ms / times['third bounce unsorted']['K6'][0]:.2f}; same "
+          f"triangle {same:.6f}")
+    check(same >= K3_SAME_TRI, f"K6 and K3 sorted: same triangle on {same}")
+    times["third bounce"] = {"K6": (ms,) + b3, "K3": (ms3,) + b3}
     return times, worst
 
 
+# ---- slice 6: environment maps and map_Kd textures ----
+
+def sun_png(path, h=32, w=64):
+    """bench.py's sun map (bench_env_nee_100k): a dim sky, a 3 x 4 sun."""
+    from sfvp_tpu_torch.render.png import encode_png
+
+    img = np.full((h, w, 3), 6, np.uint8)
+    img[6:9, 40:44] = 255
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+    return path
+
+
+def sky_png(path, h=32, w=64):
+    """A 64 x 32 sky: a bright zenith over a darker horizon, tinted by
+    longitude, with a soft warm sun."""
+    from sfvp_tpu_torch.render.png import encode_png
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    sun = 200.0 * np.exp(-((yy - 8) ** 2 + (xx - 20) ** 2) / 6.0)
+    img = np.stack([230 - 4 * yy + sun, 150 + xx + sun, 250 - 5 * yy], -1)
+    with open(path, "wb") as f:
+        f.write(encode_png(np.clip(img, 0, 255).astype(np.uint8)))
+    return path
+
+
+def checker_png(path, n=64, cell=8):
+    """bench.py's checker (bench_textured_100k): red and white cells."""
+    from sfvp_tpu_torch.render.png import encode_png
+
+    yy, xx = np.mgrid[0:n, 0:n]
+    cells = ((xx // cell + yy // cell) % 2).astype(np.uint8)
+    img = np.where(cells[..., None] > 0, [255, 255, 255],
+                   [230, 40, 40]).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+    return path
+
+
+def big_env(kind):
+    """bench.py's 2048 x 1024 maps on the card: "ramp", the sky of
+    env_big2048_100k_512 (bench_env_big_100k), or "sun", that of
+    env_big2048_nee_100k_512 (bench_env_big_nee_100k)."""
+    from sfvp_tpu_torch.scene.textures import table_from_arrays
+
+    h, w = 1024, 2048
+    if kind == "ramp":
+        yy = np.repeat(np.linspace(0.0, 1.5, h, dtype=np.float32), w)
+        planes = (yy, yy * 0.8 + 0.1, 1.5 - yy)
+    else:
+        sky = np.tile(np.linspace(0.05, 0.4, h, dtype=np.float32)[:, None],
+                      (1, w))
+        sky[180:196, 1400:1416] = 200.0
+        flat = sky.reshape(-1)
+        planes = (flat, flat * 0.9 + 0.02, flat * 0.7 + 0.05)
+    return table_from_arrays(*planes, [0], [w], [h], device=DEVICE)
+
+
+def textured_cornell(tmp):
+    """The Cornell Box as an OBJ with vt and map_Kd: its back wall wears
+    the checker (four repeats a side), the rest as bundled."""
+    from sfvp_tpu_torch import cornell_box_path
+
+    src = cornell_box_path()
+    obj = open(src).read()
+    mtl = open(src[:-3] + "mtl").read()
+    check("f 9 10 11 12" in obj and "newmtl backWall" in mtl,
+          "the bundled Cornell Box changed")
+    obj = obj.replace("mtllib CornellBox-Original.mtl", "mtllib tex.mtl")
+    obj = obj.replace("f 9 10 11 12", "vt 0 0\nvt 4 0\nvt 4 4\nvt 0 4\n"
+                                      "f 9/1 10/2 11/3 12/4")
+    mtl = mtl.replace("newmtl backWall", "newmtl backWall\nmap_Kd check.png")
+    checker_png(os.path.join(tmp, "check.png"))
+    with open(os.path.join(tmp, "tex.mtl"), "w") as f:
+        f.write(mtl)
+    path = os.path.join(tmp, "cornell_tex.obj")
+    with open(path, "w") as f:
+        f.write(obj)
+    return path
+
+
+def textured_setup(sphere, tmp):
+    """The 100k sphere with bench.py's checker (bench_textured_100k: vt
+    from x and z, every face textured), on the card; its wide tree
+    collapsed from the sphere's own binary tree with the vt rows."""
+    from sfvp_tpu_torch import upload
+    from sfvp_tpu_torch.accel.wide import build_wide, materials_array, uv_array
+    from sfvp_tpu_torch.kernels.bvh_packet import device_wide
+
+    scene = sphere["scene"]
+    t = scene.num_triangles
+    tri = scene.triangles()
+    scene = dataclasses.replace(
+        scene, face_uv=np.stack([tri[..., 0] * 0.5 + 0.5,
+                                 tri[..., 2] * 0.5 + 0.5],
+                                axis=-1).astype(np.float32),
+        face_tex=np.zeros((t,), np.int32),
+        texture_paths=[checker_png(os.path.join(tmp, "check.png"))])
+    buffers = upload(scene, device=DEVICE)
+    t0 = time.perf_counter()
+    wide = build_wide(sphere["binary"], materials_array(buffers),
+                      aux=uv_array(buffers))
+    print(f"  textured sphere: tris_aux {wide.tris_aux.nbytes} bytes beside "
+          f"{wide.nodes.nbytes + wide.tris.nbytes}; wide tree collapsed "
+          f"again in {time.perf_counter() - t0:.2f} s")
+    return dict(scene=scene, cfg=sphere["cfg"], buffers=buffers, wide=wide,
+                dw=device_wide(wide, DEVICE), lights=None)
+
+
+def env_buffers(buffers, env):
+    """Scene buffers with environment map ``env`` (a TextureTable)."""
+    return buffers._replace(env=env)
+
+
+def k1_images(buffers, cfg):
+    """K1's arguments for ``buffers`` under ``cfg``: its table, lights and
+    images."""
+    from sfvp_tpu_torch.integrate.lights import (
+        build_light_table_from_buffers, env_distribution_for)
+    from sfvp_tpu_torch.kernels.megakernel import scene_table
+
+    return scene_table(buffers), dict(
+        num_tris=buffers.num_tris, has_mirrors=False,
+        lights=(build_light_table_from_buffers(buffers) if cfg.use_nee
+                else None),
+        env=buffers.env, env_dist=(env_distribution_for(buffers.env)
+                                   if cfg.use_nee and buffers.env is not None
+                                   else None),
+        textures=buffers.textures)
+
+
+def k5_images(buffers, cfg, dw):
+    """K5's arguments for ``buffers`` under ``cfg`` over the device tree
+    ``dw``: lights and images."""
+    from sfvp_tpu_torch.integrate.lights import (
+        build_light_table_from_buffers, env_distribution_for)
+
+    return dict(has_mirrors=False,
+                lights=(build_light_table_from_buffers(buffers)
+                        if cfg.use_nee else None),
+                env=buffers.env,
+                env_dist=(env_distribution_for(buffers.env)
+                          if cfg.use_nee and buffers.env is not None
+                          else None),
+                textures=buffers.textures if dw.tris_aux is not None
+                else None)
+
+
+def random_dirs(n, seed):
+    g = np.random.default_rng(seed)
+    d = torch.tensor(g.normal(size=(3, n)), dtype=torch.float32,
+                     device=DEVICE)
+    return (d / d.norm(dim=0)).contiguous()
+
+
+def random_env(h, w, seed):
+    """A map of texels uniform in [0, 9), P3's probe's (probe_envfetch.py
+    make_env scale)."""
+    from sfvp_tpu_torch.scene.textures import table_from_arrays
+
+    g = np.random.default_rng(seed)
+    return table_from_arrays(
+        *(g.uniform(0, 9, h * w).astype(np.float32) for _ in range(3)),
+        [0], [w], [h], device=DEVICE)
+
+
+def env_maps(tmp):
+    """The 64 x 32 sky and bench.py's sun map, written as PNGs into
+    ``tmp`` and loaded onto the card as the CLI loads them: their paths
+    and tables."""
+    from sfvp_tpu_torch.scene.textures import build_texture_table
+
+    paths = {"sky": sky_png(os.path.join(tmp, "sky.png")),
+             "sun": sun_png(os.path.join(tmp, "sun.png"))}
+    maps = {k: build_texture_table([p], DEVICE) for k, p in paths.items()}
+    maps.update({f"{k}_path": p for k, p in paths.items()})
+    return maps
+
+
+def env_twin_phase(sphere, tex, maps, tmp):
+    """Phase 25: K1, K5, K3, K6 with environment maps and textures, P3 and
+    P4, and K1/K2 past 480 triangles, each against its twin."""
+    from sfvp_tpu_torch import RenderConfig, load_obj, upload
+    from sfvp_tpu_torch.kernels import envfetch
+    from sfvp_tpu_torch.kernels.megakernel import (
+        scene_table, wave_render, wave_render_plain)
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render, bvh_regen_render_plain)
+    from sfvp_tpu_torch.kernels.megakernel_regen import (
+        regen_render, regen_render_plain)
+    from sfvp_tpu_torch.kernels import build
+    from sfvp_tpu_torch.scene.procedural import sphere_mesh
+
+    n1, spp1 = ENV_TWIN_SIZE, ENV_TWIN_SPP
+    phase(f"env/tex twins: K1 at {n1}x{n1}, {spp1} spp (sky, sun + NEE + MIS "
+          f"+ RR, textured back wall); K5 at {BVH_TWIN_SIZE}x{BVH_TWIN_SIZE}"
+          f", {BVH_TWIN_SPP} spp on the {SPHERE_TRIS // 1000}k sphere "
+          "(checker, sun + NEE, 2048x1024 sun + NEE); K3 and K6 on a "
+          "textured wave; P3 and P4; K1 and K2 past 480 triangles")
+    worst = {k: 0.0 for k in ("K1", "K2", "K3", "K5", "K6", "P3", "P4")}
+    sky, sun = maps["sky"], maps["sun"]
+    cornell = cornell_buffers(DEVICE)
+    cases = {
+        "sky": (env_buffers(cornell, sky), {}),
+        "sun nee": (env_buffers(cornell, sun), NEE_FLAGS),
+        "textured": (upload(load_obj(textured_cornell(tmp)), device=DEVICE),
+                     {}),
+    }
+    for case, (buffers, kw) in cases.items():
+        cfg = RenderConfig(width=n1, height=n1, spp_per_step=spp1,
+                           max_depth=8, **kw)
+        table, imgs = k1_images(buffers, cfg)
+        args = dict(cfg=cfg, global_shape=(n1, n1), npix=n1 * n1, **imgs)
+        got = regen_render(table, 3, 0, **args)
+        exp = regen_render_plain(table, 3, 0, **args)
+        worst["K1"] = max(worst["K1"], compare(f"K1 {case}", got, exp, spp1))
+
+    n5 = BVH_TWIN_SIZE
+    cfg5 = dataclasses.replace(sphere["cfg"], width=n5, height=n5,
+                               spp_per_step=BVH_TWIN_SPP)
+    cases = {
+        "checker": (tex["buffers"], tex["dw"], cfg5),
+        "sun nee": (env_buffers(sphere["buffers"], sun), sphere["dw"],
+                    dataclasses.replace(cfg5, **NEE_FLAGS)),
+        "sun 2048 nee": (env_buffers(sphere["buffers"], big_env("sun")),
+                         sphere["dw"], dataclasses.replace(cfg5, **NEE_FLAGS)),
+    }
+    for case, (buffers, dw, cfg) in cases.items():
+        args = dict(cfg=cfg, global_shape=(n5, n5), npix=n5 * n5,
+                    **k5_images(buffers, cfg, dw))
+        got = bvh_regen_render(dw, 3, 0, **args)
+        exp = bvh_regen_render_plain(dw, 3, 0, **args)
+        worst["K5"] = max(worst["K5"], compare(
+            f"K5 {case}", got, exp, BVH_TWIN_SPP, K5_TWIN_REL_RMSE))
+
+    size = CROSS_SIZE
+    one = dataclasses.replace(tex["cfg"], width=size, height=size,
+                              spp_per_step=1, stream_tris=False)
+    camera, bounce = capture_waves(one, tex, (0, 1))
+    for label, rays in (("tex camera", camera), ("tex bounce", bounce)):
+        check(rays.shape == (7, size * size), f"wave {rays.shape}")
+        worst["K3"] = max(worst["K3"], compare_trace(
+            "K3", label, tex["dw"], one.t_min, rays))
+        worst["K6"] = max(worst["K6"], compare_k6(label, tex["dw"], one.t_min,
+                                                  rays))
+
+    for h, w in FETCH_SIZES:
+        env = random_env(h, w, seed=h)
+        d = random_dirs(FETCH_N, seed=w)
+        got = envfetch.env_fetch(env, d)
+        exp = envfetch.env_fetch_plain(env, d)
+        err = float((got - exp).abs().max())
+        limit = 3e-5 * float(env.tr.max())
+        eq = float((got == exp).all(0).float().mean())
+        print(f"  P3 {h}x{w}: {FETCH_N} directions, max abs {err:.3e} "
+              f"(limit {limit:.3e}), bitwise equal on {eq:.6f}")
+        check(err < limit, f"P3 {h}x{w} max abs {err} past {limit}")
+        worst["P3"] = max(worst["P3"], err)
+        if (h, w) in ABLATE_SIZES:
+            half = envfetch.half_map(env)
+            for mode in envfetch.ABLATIONS:
+                g_m = envfetch.env_fetch_ablate(env, d, mode, half)
+                e_m = envfetch.env_fetch_plain(env, d, mode, half)
+                err_m = float((g_m - e_m).abs().max())
+                eq_m = float((g_m == e_m).all(0).float().mean())
+                print(f"  P4 {mode:6s} {h}x{w}: max abs {err_m:.3e}, bitwise "
+                      f"equal on {eq_m:.6f}")
+                check(err_m < limit, f"P4 {mode} {h}x{w} max abs {err_m}")
+                worst["P4"] = max(worst["P4"], err_m)
+                if mode == "full":
+                    check(torch.equal(g_m, got), "P4 full is not P3")
+                if mode == "half":
+                    rel = float(((g_m - got).abs() / got.abs().clamp_min(
+                        1e-6)).max())
+                    print(f"  P4 half vs full: max relative {rel:.3e}")
+                    check(rel < 1e-3, f"P4 half off full by {rel}")
+
+    for n_lat in BRUTE_LATS:
+        buffers = upload(sphere_mesh(n_lat=n_lat, n_lon=n_lat, bump=0.3),
+                         device=DEVICE)
+        nb = BRUTE_SIZE
+        cfg = dataclasses.replace(sphere["cfg"], width=nb, height=nb,
+                                  spp_per_step=BRUTE_SPP,
+                                  spp_chunk=BRUTE_SPP)
+        table = scene_table(buffers)
+        args = dict(cfg=cfg, num_tris=buffers.num_tris, global_shape=(nb, nb),
+                    npix=nb * nb, has_mirrors=False)
+        tile = build.table_plan(buffers.num_tris, 20)[0]
+        label = f"{buffers.num_tris} tris ({'tiled' if tile else 'opt-in'})"
+        worst["K1"] = max(worst["K1"], compare(
+            f"K1 {label}", regen_render(table, 3, 0, **args),
+            regen_render_plain(table, 3, 0, **args), BRUTE_SPP))
+        got = [c.reshape(BRUTE_SPP, -1).sum(0)
+               for c in wave_render(table, 3, 0, 0, **args)]
+        exp = [c.reshape(BRUTE_SPP, -1).sum(0)
+               for c in wave_render_plain(table, 3, 0, 0, **args)]
+        worst["K2"] = max(worst["K2"], compare(f"K2 {label}", got, exp,
+                                               BRUTE_SPP))
+    return worst
+
+
+def env_main_path_phase(tmp, sphere, tex, maps):
+    """Phase 26: the CLI with --env-map on the Cornell Box (K1) and on the
+    100k sphere (K5), and bench.py's four env/texture rows at their own
+    shape (K5)."""
+    from sfvp_tpu_torch import RenderConfig, cli, init_state
+    from sfvp_tpu_torch.config import CameraConfig
+    from sfvp_tpu_torch.dispatch import select_render_step
+
+    phase(f"env/tex main path: cli --env-map on the Cornell Box at {MAIN_W}x"
+          f"{MAIN_H}, {MAIN_SPP} spp, {ENV_MAIN_STEPS} steps, with and "
+          f"without --nee --mis --rr (K1); cli --scene sphere --scene-tris "
+          f"{SPHERE_TRIS} --nee --mis --env-map at {BVH_W}x{BVH_H}, {BVH_SPP} "
+          f"spp (K5); bench.py's tex/env rows at {BENCH_SIZE}x{BENCH_SIZE}, "
+          f"8 spp (K5)")
+    sky, sun = maps["sky_path"], maps["sun_path"]
+    runs = {}
+    for name, extra in (("cli_env", []),
+                        ("cli_env_nee", ["--nee", "--mis", "--rr"])):
+        reset_counts()
+        out, log = os.path.join(tmp, f"{name}.png"), os.path.join(
+            tmp, f"{name}.jsonl")
+        rc = cli.main(["--device", DEVICE, "--width", str(MAIN_W), "--height",
+                       str(MAIN_H), "--spp", str(MAIN_SPP), "--max-depth",
+                       str(MAIN_DEPTH), "--steps", str(ENV_MAIN_STEPS),
+                       "--env-map", sky, *extra, "--out", out, "--log", log,
+                       "--quiet"])
+        runs[name] = read_counts()
+        check(rc == 0, f"cli returned {rc}")
+        print(f"  {name}: launches {runs[name]}")
+        check(runs[name] == only(K1=ENV_MAIN_STEPS),
+              f"{name} launches {runs[name]}")
+        recs = [json.loads(x) for x in open(log).read().splitlines()]
+        check(len(recs) == ENV_MAIN_STEPS, f"{len(recs)} log records")
+        print_steps(recs)
+        check_image(name, _read_png(out), MAIN_H, MAIN_W)
+
+    reset_counts()
+    setup, recs, img = run_cli(tmp, "sphere_env", [
+        "--scene", "sphere", "--scene-tris", str(SPHERE_TRIS), *NEE_CLI,
+        "--env-map", sun, "--spp", str(BVH_SPP), "--width", str(BVH_W),
+        "--height", str(BVH_H), "--steps", str(ENV_MAIN_STEPS)])
+    runs["cli_sphere_env"] = read_counts()
+    print(f"  launches: {runs['cli_sphere_env']}")
+    check(runs["cli_sphere_env"] == only(K5=ENV_MAIN_STEPS),
+          f"cli sphere env launches {runs['cli_sphere_env']}")
+    print_steps(recs)
+    check_image("K5 sphere env", img, BVH_H, BVH_W)
+
+    cam = CameraConfig.look_at(origin=(0.0, 2.2, 5.0), target=(0.0, 0.0, 0.0),
+                               fov_y_deg=50.0)
+    gi = dict(width=BENCH_SIZE, height=BENCH_SIZE, spp_per_step=8,
+              max_depth=8, sampling="cosine", camera=cam,
+              sky_emission=(0.8, 0.85, 1.0))
+    nee = dict(use_nee=True, use_mis=True, use_rr=True)
+    sun_table = maps["sun"]
+    rows = {
+        "tex_100k_512": (tex, tex["buffers"], RenderConfig(**gi,
+                                                           spp_chunk=8)),
+        "env_nee_100k_512": (sphere, env_buffers(sphere["buffers"],
+                                                 sun_table),
+                             RenderConfig(**gi, **nee)),
+        "env_big2048_100k_512": (sphere, env_buffers(sphere["buffers"],
+                                                     big_env("ramp")),
+                                 RenderConfig(**gi)),
+        "env_big2048_nee_100k_512": (sphere, env_buffers(
+            sphere["buffers"], big_env("sun")), RenderConfig(**gi, **nee)),
+    }
+    bench = {}
+    for name, (s, buffers, cfg) in rows.items():
+        step = select_render_step(cfg, buffers, wide=s["wide"])
+        reset_counts()
+        st = step(init_state(BENCH_SIZE, BENCH_SIZE, DEVICE))  # warm-up
+        times = []
+        for _ in range(BENCH_STEPS):
+            m0 = float(st.mrays)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = step(st)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0, float(st.mrays) - m0))
+        runs[name] = read_counts()
+        check(runs[name] == only(K5=BENCH_STEPS + 1),
+              f"{name} launches {runs[name]}")
+        check_image(name, st.accum.cpu().numpy(), BENCH_SIZE, BENCH_SIZE)
+        bench[name] = [(dt * 1e3, mr / dt) for dt, mr in times]
+        print(f"  {name}: launches {runs[name]}; steps "
+              + ", ".join(f"{ms:.3f} ms ({mr:.2f} Mrays/s)"
+                          for ms, mr in bench[name]))
+    return runs, bench, rows
+
+
+def env_wavefront_phase(sphere, tex, maps):
+    """Phase 27: one wavefront step over K3 (and K4) with textures and with
+    the sun under NEE + MIS, held to K5's image of the same step; and the
+    textured sphere's own route, K6 (its tree with the vt rows is past
+    sfvp_tpu's streaming threshold)."""
+    from sfvp_tpu_torch import init_state
+    from sfvp_tpu_torch.dispatch import select_render_step, stream_tris
+
+    per_step = BVH_SPP * BVH_DEPTH
+    phase(f"env/tex wavefront: one step at {BVH_W}x{BVH_H}, {BVH_SPP} spp, "
+          f"depth {BVH_DEPTH}, megakernel_regen=False, over K3 (textured; "
+          f"sun + NEE + MIS with K4) and K6 (textured, streamed), each "
+          f"against K5's step")
+    runs = {}
+    cases = {
+        "wavefront_tex_k3": (tex, tex["buffers"], dict(stream_tris=False),
+                             dict(K3=per_step)),
+        "wavefront_tex_k6": (tex, tex["buffers"], dict(stream_tris=True),
+                             dict(K6=per_step)),
+        "wavefront_sun_k3k4": (sphere, env_buffers(
+            sphere["buffers"], maps["sun"]), dict(NEE_FLAGS),
+            dict(K3=per_step, K4=per_step)),
+    }
+    print(f"  textured sphere streamed by default: "
+          f"{stream_tris(tex['cfg'], tex['wide'])}")
+    for name, (s, buffers, kw, kernels) in cases.items():
+        cfg = dataclasses.replace(s["cfg"], **kw)
+        wf = select_render_step(dataclasses.replace(
+            cfg, megakernel_regen=False), buffers, wide=s["wide"])
+        k5 = select_render_step(cfg, buffers, wide=s["wide"])
+        reset_counts()
+        a = wf(init_state(BVH_H, BVH_W, DEVICE))
+        torch.cuda.synchronize()
+        runs[name] = read_counts()
+        check(runs[name] == only(**kernels), f"{name} launches {runs[name]}")
+        b = k5(init_state(BVH_H, BVH_W, DEVICE))
+        rel = rel_rmse(a.accum, b.accum)
+        seg_a, seg_b = (round(float(x) * 1e6) for x in (a.mrays, b.mrays))
+        print(f"  {name}: launches {runs[name]}; against K5: rel_rmse "
+              f"{rel:.3e}, segments {seg_a} vs {seg_b}")
+        check(rel <= WF_K5_REL_RMSE and seg_a == seg_b,
+              f"{name} against K5: rel_rmse {rel}, segments {seg_a} vs "
+              f"{seg_b}")
+    return runs
+
+
+def env_timing_phase(sphere, tex, rows, maps):
+    """Phase 28: K1 per env Cornell step (with and without NEE), K5 per
+    step of each bench row, K3 per textured first-bounce launch, P3 per
+    1M-direction launch and P4 per variant, CUDA events, each beside its
+    twin and its bound."""
+    from sfvp_tpu_torch import RenderConfig
+    from sfvp_tpu_torch.kernels import envfetch
+    from sfvp_tpu_torch.kernels.bvh_packet import packet_trace, packet_trace_plain
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render, bvh_regen_render_plain)
+    from sfvp_tpu_torch.kernels.megakernel_regen import (
+        regen_render, regen_render_plain)
+
+    phase(f"env/tex times and twin checks: K1 per env Cornell step "
+          f"({MAIN_W}x{MAIN_H}, {MAIN_SPP} spp), K5 per bench row step, K3 "
+          f"per textured first-bounce launch, P3 per {FETCH_N}-direction "
+          "launch, P4 per variant, CUDA events")
+    times, worst = {}, {"K1": 0.0, "K5": 0.0, "K3": 0.0}
+    sky = maps["sky"]
+    for name, kw in (("K1 env", {}), ("K1 env nee", NEE_FLAGS)):
+        buffers = env_buffers(cornell_buffers(DEVICE), sky)
+        cfg = RenderConfig(width=MAIN_W, height=MAIN_H, spp_per_step=MAIN_SPP,
+                           max_depth=MAIN_DEPTH, **kw)
+        table, imgs = k1_images(buffers, cfg)
+        args = dict(cfg=cfg, global_shape=(MAIN_H, MAIN_W),
+                    npix=MAIN_W * MAIN_H, **imgs)
+        ms, got = cuda_ms(lambda: regen_render(table, 1, 0, **args), 5)
+        counts = {}
+        plain, exp = cuda_ms(lambda: regen_render_plain(
+            table, 1, 0, counts=counts, **args), 1, warm=False)
+        worst["K1"] = max(worst["K1"], compare(name, got, exp, MAIN_SPP))
+        segs = int(exp[3].sum(dtype=torch.int64))
+        # every segment tests all triangles, every shadow ray until its
+        # first hit; the env fetch is left out of the count (a lower
+        # bound); bytes: the tables and the map once, the outputs once
+        ops = (segs * (buffers.num_tris * TRI_OPS_TABLE + SHADE_OPS)
+               + counts.get("shadow_tests", 0) * TRI_OPS_TABLE
+               + counts.get("shadow_rays", 0) * NEE_OPS)
+        nbytes = (table.numel() * 4 + env_nbytes(imgs)
+                  + MAIN_W * MAIN_H * 16)
+        times[name] = (ms, plain) + bound(ops, nbytes)
+        print(f"  {name}: kernel {ms:.3f} ms/step, twin {plain:.1f} ms; "
+              f"{segs} segments, {counts}; bound {times[name][2]:.3f} ms "
+              f"({times[name][3]})")
+
+    npix = BENCH_SIZE * BENCH_SIZE
+    for name, (s, buffers, cfg) in rows.items():
+        dw = s["dw"]
+        args = dict(cfg=cfg, global_shape=(BENCH_SIZE, BENCH_SIZE),
+                    npix=npix, **k5_images(buffers, cfg, dw))
+        ms, got = cuda_ms(lambda: bvh_regen_render(dw, 1, 0, **args), 5)
+        counts = {}
+        plain, exp = cuda_ms(lambda: bvh_regen_render_plain(
+            dw, 1, 0, counts=counts, **args), 1, warm=False)
+        worst["K5"] = max(worst["K5"], compare(
+            f"K5 {name}", got, exp, 8, K5_TWIN_REL_RMSE))
+        segs = int(exp[3].sum(dtype=torch.int64))
+        ops = traversal_ops(counts) + segs * SHADE_OPS
+        if "shadow_node_pops" in counts:
+            ops += (walk_ops(counts["shadow_node_pops"],
+                             counts["shadow_leaf_pops"], sort=False)
+                    + counts["shadow_rays"] * NEE_OPS)
+        # misses read the map (segments that did not hit), env NEE samples
+        # do (shadow rays of the env sample are among the shadow rays)
+        ops += (segs - counts["hits"]) * ENV_FETCH_OPS
+        nbytes = tree_nbytes(s["wide"]) + env_nbytes(args) + npix * 16
+        if s["wide"].tris_aux is not None:
+            nbytes += s["wide"].tris_aux.nbytes
+        times[name] = (ms, plain) + bound(ops, nbytes)
+        print(f"  K5 {name}: kernel {ms:.3f} ms/step, twin {plain:.1f} ms; "
+              f"{segs} segments; bound {times[name][2]:.3f} ms "
+              f"({times[name][3]})")
+
+    one = dataclasses.replace(tex["cfg"], spp_per_step=1, stream_tris=False)
+    first = capture_waves(one, tex, (0,))[0]
+    dw = tex["dw"]
+    ms, got = cuda_ms(lambda: packet_trace(dw, one.t_min, first), 20)
+    counts = {}
+    plain, exp = cuda_ms(lambda: packet_trace_plain(dw, one.t_min, first,
+                                                    counts), 1, warm=False)
+    worst["K3"] = compare_trace("K3", "tex first", dw, one.t_min, first,
+                                got=got, exp=exp)
+    b = bound(traversal_ops(counts),
+              tree_nbytes(tex["wide"]) + tex["wide"].tris_aux.nbytes
+              + first.shape[1] * (7 + 22) * 4)
+    times["K3 tex"] = (ms, plain) + b
+    print(f"  K3 textured first bounce: kernel {ms:.3f} ms/launch, twin "
+          f"{plain:.1f} ms; bound {b[0]:.3f} ms ({b[1]})")
+
+    for h, w in FETCH_SIZES:
+        env = random_env(h, w, seed=h)
+        d = random_dirs(FETCH_N, seed=w)
+        call, _ = cuda_ms(lambda: envfetch.env_fetch(env, d), 20)
+        ms = queued_ms(lambda: envfetch.env_fetch(env, d), 20)
+        plain, _ = cuda_ms(lambda: envfetch.env_fetch_plain(env, d), 3)
+        b = bound(FETCH_N * ENV_FETCH_OPS, 24 * FETCH_N + 12 * h * w)
+        times[f"P3 {h}x{w}"] = (ms, plain) + b
+        print(f"  P3 {h}x{w}: kernel {ms:.4f} ms/launch queued, {call:.4f} "
+              f"ms a call at the host's pace; twin {plain:.3f} ms; bound "
+              f"{b[0]:.4f} ms ({b[1]})")
+        if (h, w) in ABLATE_SIZES:
+            half = envfetch.half_map(env)
+            for mode, ops, texel_bytes in (
+                    ("trig", ENV_TRIG_OPS, 0), ("noread", ENV_NOREAD_OPS, 0),
+                    ("half", ENV_FETCH_OPS, 6 * h * w),
+                    ("full", ENV_FETCH_OPS, 12 * h * w)):
+                ms = queued_ms(lambda: envfetch.env_fetch_ablate(
+                    env, d, mode, half), 20)
+                plain, _ = cuda_ms(lambda: envfetch.env_fetch_plain(
+                    env, d, mode, half), 3)
+                b = bound(FETCH_N * ops, 24 * FETCH_N + texel_bytes)
+                times[f"P4 {mode} {h}x{w}"] = (ms, plain) + b
+                print(f"  P4 {mode:6s} {h}x{w}: kernel {ms:.4f} ms/launch "
+                      f"queued, twin {plain:.3f} ms; bound {b[0]:.4f} ms "
+                      f"({b[1]})")
+    return times, worst
+
+
+def env_nbytes(args):
+    """Bytes of a render's environment map, its distribution and its
+    texture pool, each read once."""
+    n = 0
+    for t in (args.get("env"), args.get("textures")):
+        if t is not None:
+            n += sum(a.numel() * 4 for a in t.tensors)
+    dist = args.get("env_dist")
+    if dist is not None:
+        n += (dist.cdf.numel() + dist.pdf_flat.numel()) * 4
+    return n
+
+
+def sub_entry(per, launches, worst, times):
+    """A further run of a kernel in the report: (per, launches, worst,
+    times) as a dict."""
+    ms, plain, bound_ms, bound_by = times
+    return {"per": per, "launches": launches, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def kernel_entry(name, source, replaces, per, launches, worst, times,
-                 nee=None):
+                 nee=None, **more):
     """One kernel of the report; ``nee``: (per, launches, worst, times) of
-    its run under next-event estimation, where it has one."""
+    its run under next-event estimation, where it has one; ``more``: other
+    runs by name, as (per, launches, worst, times) too."""
     ms, plain, bound_ms, bound_by = times
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, "max_abs_err": worst,
              "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": None, "per": per}
     if nee is not None:
-        per, launches, worst, (ms, plain, bound_ms, bound_by) = nee
-        entry["nee"] = {"per": per, "launches": launches,
-                        "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-                        "bound_ms": bound_ms, "bound_by": bound_by}
+        entry["nee"] = sub_entry(*nee)
+    for key, run in more.items():
+        entry[key] = run if isinstance(run, dict) else sub_entry(*run)
     return entry
 
 
 def main() -> int:
     card = device_phase()
-    build_phase()
+    sphere, city = build_phase()
     worst = twin_phase()
     oracle_phase(False)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1891,7 +2672,6 @@ def main() -> int:
     times, worst_main = timing_phase()
     worst = {k: max(worst[k], worst_main[k]) for k in worst}
 
-    sphere = scene_setup("sphere", SPHERE_TRIS)
     worst.update(bvh_twin_phase(sphere))
     oracle_phase(True)
     k5_vs_k1_phase()
@@ -1903,9 +2683,7 @@ def main() -> int:
     big_worst, big = big_sphere_phase(sphere)
     worst["K5"] = max(worst["K5"], big_worst)
     sort_phase(sphere)
-    del sphere
 
-    city = scene_setup("city", CITY_TRIS, **NEE_FLAGS)
     check(city["lights"] is not None, "the city has no emissive triangle")
     nee_worst = nee_twin_phase(city)
     nee_oracle_phase()
@@ -1931,7 +2709,28 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         k6_runs = adaptive_main_path_phase(tmp, city)
     k6_times, k6_time_worst = k6_timing_phase(big)
+    del big, city
 
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("env/tex set-up: the sky and sun maps, the textured "
+              f"{SPHERE_TRIS // 1000}k sphere")
+        maps = env_maps(tmp)
+        tex = textured_setup(sphere, tmp)
+        env_worst = env_twin_phase(sphere, tex, maps, tmp)
+        env_runs, bench, rows = env_main_path_phase(tmp, sphere, tex, maps)
+        env_runs.update(env_wavefront_phase(sphere, tex, maps))
+        env_times, env_time_worst = env_timing_phase(sphere, tex, rows, maps)
+    for k, v in env_time_worst.items():
+        env_worst[k] = max(env_worst[k], v)
+    worst = {k: max(v, env_worst.get(k, 0.0)) for k, v in worst.items()}
+    for name, steps in bench.items():
+        print(f"  bench row {name}: step ms "
+              + ", ".join(f"{ms:.3f}" for ms, _ in steps) + "; Mrays/s "
+              + ", ".join(f"{mr:.3f}" for _, mr in steps))
+
+    env_launches = {k: sum(env_runs[r][k] for r in (
+        "cli_env", "cli_env_nee", "cli_sphere_env", *rows)) for k in (
+        "P3", "P4")}
     step = f"step ({MAIN_W}x{MAIN_H}, {MAIN_SPP} spp, Cornell)"
     city_step = (f"step ({BVH_W}x{BVH_H}, {BVH_SPP} spp, city, cosine + RR "
                  "+ NEE + MIS)")
@@ -1947,7 +2746,13 @@ def main() -> int:
                      launches["K1"], worst["K1"], times["K1"],
                      nee=(f"{step[:-1]}, cosine + RR + NEE + MIS)",
                           nee_runs["cli_cornell"]["K1"], nee_worst["K1"],
-                          nee_times["K1"])),
+                          nee_times["K1"]),
+                     env=(f"{step[:-1]}, sky map)",
+                          env_runs["cli_env"]["K1"], env_worst["K1"],
+                          env_times["K1 env"]),
+                     env_nee=(f"{step[:-1]}, sky map, cosine + RR + NEE + "
+                              "MIS)", env_runs["cli_env_nee"]["K1"],
+                              env_worst["K1"], env_times["K1 env nee"])),
         kernel_entry("wave_render (K2)", "sfvp_tpu_torch/csrc/wave_render.cu",
                      "sfvp_tpu/kernels/megakernel.py:366",
                      f"{step}: {MAIN_SPP} launches",
@@ -1956,7 +2761,11 @@ def main() -> int:
                      "sfvp_tpu/kernels/bvh_packet.py:394",
                      f"launch on the {BVH_W}x{BVH_H} first-bounce wave "
                      f"({SPHERE_TRIS // 1000}k sphere)",
-                     bvh_runs["renderer_k3"]["K3"], worst["K3"], times["K3"]),
+                     bvh_runs["renderer_k3"]["K3"], worst["K3"], times["K3"],
+                     textured=(f"launch on the {BVH_W}x{BVH_H} first-bounce "
+                               "wave (textured sphere, 22 planes)",
+                               env_runs["wavefront_tex_k3"]["K3"],
+                               env_worst["K3"], env_times["K3 tex"])),
         kernel_entry("bvh_occlusion (K4)",
                      "sfvp_tpu_torch/csrc/bvh_occlusion.cu",
                      "sfvp_tpu/kernels/bvh_packet.py:635",
@@ -1971,15 +2780,33 @@ def main() -> int:
                      f"{SPHERE_TRIS // 1000}k sphere)",
                      bvh_runs["cli_100k"]["K5"], worst["K5"], times["K5"],
                      nee=(city_step, nee_runs["cli_city"]["K5"],
-                          nee_worst["K5"], nee_times["K5"])),
+                          nee_worst["K5"], nee_times["K5"]),
+                     **{name: (f"step ({BENCH_SIZE}x{BENCH_SIZE}, 8 spp, "
+                               f"bench.py's {name})", env_runs[name]["K5"]
+                               // (BENCH_STEPS + 1),
+                               env_worst["K5"], env_times[name])
+                        for name in rows}),
         dict(kernel_entry("packet_trace2 (K6)",
                      "sfvp_tpu_torch/csrc/packet_trace2.cu",
                      "sfvp_tpu/kernels/bvh_packet2.py:512",
                      f"launch on the {BVH_W}x{BVH_H} first-bounce wave "
                      f"({BIG_TRIS // 1000}k sphere)",
                      k6_runs["cli_adaptive"]["K6"],
-                     max(k6_worst, k6_time_worst),
-                     k6_times["first bounce"]["K6"]),
+                     max(k6_worst, k6_time_worst, env_worst["K6"]),
+                     k6_times["first bounce"]["K6"],
+                     third_sorted={
+                         "per": f"launch on the {BVH_W}x{BVH_H} sorted "
+                                "third-bounce wave (no twin run: its twin "
+                                "ran on the same rays unsorted)",
+                         "launches": k6_runs["renderer_k6"]["K6"],
+                         "ms": k6_times["third bounce"]["K6"][0],
+                         "bound_ms": k6_times["third bounce"]["K6"][1],
+                         "bound_by": k6_times["third bounce"]["K6"][2]},
+                     third_unsorted=(f"launch on the {BVH_W}x{BVH_H} "
+                                     "unsorted third-bounce wave",
+                                     k6_runs["renderer_k6_unsorted"]["K6"],
+                                     k6_time_worst,
+                                     k6_times["third bounce unsorted"]["K6"])),
              union_walk_bound_ms=k6_times["first bounce"]["K6 union walk"][0]),
         kernel_entry("tlas_trace (K7)", "sfvp_tpu_torch/csrc/tlas_trace.cu",
                      "sfvp_tpu/kernels/bvh_tlas.py:403",
@@ -1999,6 +2826,32 @@ def main() -> int:
                      tlas_times["K9 field"],
                      nee=(lit_step, tlas_runs["renderer_lit_k9"]["K9"],
                           tlas_worst["K9"], tlas_times["K9 lit field"])),
+        # the fetch runs inside K1 and K5 on the main path (common.cuh
+        # env_lookup): P3's and P4's launches in phase 26's runs, which
+        # only() holds to 0
+        kernel_entry("env_fetch (P3)", "sfvp_tpu_torch/csrc/env_fetch.cu",
+                     "benchmarks/probe_envfetch.py:66",
+                     f"launch on {FETCH_N} directions, 2048x1024 map",
+                     env_launches["P3"], env_worst["P3"],
+                     env_times["P3 1024x2048"],
+                     **{f"map_{h}x{w}": (f"launch on {FETCH_N} directions, "
+                                         f"{w}x{h} map", env_launches["P3"],
+                                         env_worst["P3"],
+                                         env_times[f"P3 {h}x{w}"])
+                        for h, w in FETCH_SIZES[:-1]}),
+        kernel_entry("env_fetch_ablate (P4)",
+                     "sfvp_tpu_torch/csrc/env_fetch.cu",
+                     "benchmarks/probe_envfetch_ablate.py:111",
+                     f"full variant, launch on {FETCH_N} directions, "
+                     "2048x1024 map", env_launches["P4"], env_worst["P4"],
+                     env_times["P4 full 1024x2048"],
+                     **{f"{mode}_{w}x{h}": (
+                         f"{mode} variant, {FETCH_N} directions, {w}x{h} "
+                         "map", env_launches["P4"], env_worst["P4"],
+                         env_times[f"P4 {mode} {h}x{w}"])
+                        for h, w in ABLATE_SIZES
+                        for mode in ("trig", "noread", "half", "full")
+                        if (mode, h) != ("full", 1024)}),
     ]}
     print(card)
     print(json.dumps(report))

@@ -44,9 +44,8 @@ class TwoLevelBVH(NamedTuple):
     inst: np.ndarray    # (I, 128) f32 instance rows (see module docstring)
     max_stack: int
     num_instances: int
-    # parallel uv/texid leaf rows (map_Kd textures, ROADMAP.md A.13): the
-    # port's builder leaves it None (upload refuses textured meshes); a
-    # table from sfvp_tpu's builder may carry it, and the kernels refuse it
+    # parallel uv/texid leaf rows of textured meshes (map_Kd); the
+    # two-level kernels refuse them until ROADMAP.md A.13b
     tris_aux: "np.ndarray | None" = None
 
 

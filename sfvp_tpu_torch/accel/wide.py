@@ -49,7 +49,8 @@ class WideBVH(NamedTuple):
     tris: np.ndarray       # (Ml, 128) f32
     prim_rows: np.ndarray  # (Ml, LEAF_TRIS) i32 original prim ids (-1 pad)
     max_stack: int         # worst-case traversal stack depth
-    # map_Kd extension (textures, ROADMAP.md A.13): None until then
+    # map_Kd extension: per-corner vt + texid+1 in the lanes of each
+    # triangle's slot (uv_array), None on untextured scenes
     tris_aux: "np.ndarray | None" = None  # (Ml, 128) f32
 
     @property
@@ -343,33 +344,53 @@ def materials_array(scene_buffers) -> np.ndarray:
 
 
 def uv_array(scene_buffers) -> "np.ndarray | None":
-    """Per-corner vt + texid table of a textured scene; the port's
-    SceneBuffers carry no textures yet (ROADMAP.md A.13), so None."""
-    return None
+    """(T, 7) per-corner vt + texid table [u0 v0 u1 v1 u2 v2 texid+1] in
+    original tri order; None when the scene has no textures. texid is
+    shifted by +1 so zero-padded leaf slots decode to -1 (untextured) in
+    the payload; the leaf row then carries everything shading needs (ref
+    closesthit.rchit:50-65 fetches the material by primitive id)."""
+    if not scene_buffers.has_textures:
+        return None
+    t = scene_buffers.num_tris
+
+    def col(f):
+        return np.asarray(getattr(scene_buffers, f)[:t].cpu())
+
+    return np.stack(
+        [col("u0"), col("v0t"), col("u1"), col("v1t"),
+         col("u2"), col("v2t"),
+         col("tex").astype(np.float32) + 1.0],
+        axis=1,
+    ).astype(np.float32)
 
 
-def build_wide_from_buffers(
-    scene_buffers, native: str = "auto", builder: str = "auto"
-) -> WideBVH:
-    """builder: "sah" = binned-SAH binary tree (best trace quality);
-    "lbvh" = Morton build (fastest build). "auto" = SAH up to
-    SAH_MAX_TRIS triangles and LBVH beyond, the JAX package's choice when
-    its native builder is absent. ``native="require"`` raises
-    (ROADMAP.md A.9)."""
+def binary_bvh(scene_buffers, native: str = "auto", builder: str = "auto"):
+    """The binary BVH (leaf_size LEAF_TRIS) that build_wide collapses.
+    builder: "sah" = binned-SAH binary tree (best trace quality); "lbvh" =
+    Morton build (fastest build). "auto" = SAH up to SAH_MAX_TRIS
+    triangles and LBVH beyond, the JAX package's choice when its native
+    builder is absent. ``native="require"`` raises (ROADMAP.md A.9)."""
     if builder == "auto":
         builder = "sah" if scene_buffers.num_tris <= SAH_MAX_TRIS else "lbvh"
     if builder == "sah":
         from .lbvh import host_triangles
         from .sah import sah_bvh_from_arrays
 
-        binary = sah_bvh_from_arrays(host_triangles(scene_buffers),
-                                     leaf_size=LEAF_TRIS, native=native)
-    elif builder == "lbvh":
+        return sah_bvh_from_arrays(host_triangles(scene_buffers),
+                                   leaf_size=LEAF_TRIS, native=native)
+    if builder == "lbvh":
         from .lbvh import build_bvh
 
-        binary = build_bvh(scene_buffers, leaf_size=LEAF_TRIS, native=native)
-    else:
-        raise ValueError(f"unknown builder {builder!r}")
+        return build_bvh(scene_buffers, leaf_size=LEAF_TRIS, native=native)
+    raise ValueError(f"unknown builder {builder!r}")
+
+
+def build_wide_from_buffers(
+    scene_buffers, native: str = "auto", builder: str = "auto"
+) -> WideBVH:
+    """The wide BVH of a scene's buffers over ``binary_bvh`` (its
+    ``builder`` and ``native``), with the materials and, on a textured
+    scene, the vt + texid rows (``tris_aux``)."""
     return build_wide(
-        binary, materials_array(scene_buffers), aux=uv_array(scene_buffers)
-    )
+        binary_bvh(scene_buffers, native, builder),
+        materials_array(scene_buffers), aux=uv_array(scene_buffers))

@@ -13,10 +13,13 @@ Example:
         --sampling cosine --spp 8 --steps 4 --out field.png
     python -m sfvp_tpu_torch.cli --scene sphere --scene-tris 500000 \
         --sampling cosine --rr --spp 8 --adaptive 0.25 --steps 6
+    python -m sfvp_tpu_torch.cli --scene sphere --scene-tris 100000 \
+        --sampling cosine --rr --nee --mis --env-map sky.hdr --spp 8
 
-Flags of features not ported yet (--env-map, --lens-radius, --focus-dist,
---dist) raise NotImplementedError; --env-map with --scene instanced raises
-ValueError, as in sfvp_tpu. With --adaptive, --log writes one JSONL record
+An OBJ with ``vt`` and ``map_Kd`` renders textured. Flags of features not
+ported yet (--lens-radius, --focus-dist, --dist) raise
+NotImplementedError; --env-map with --scene instanced raises ValueError,
+as in sfvp_tpu. With --adaptive, --log writes one JSONL record
 a step (integrate/adaptive.py AdaptiveRenderer.run) and --frame-every is
 ignored, as in sfvp_tpu.
 """
@@ -75,8 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "each step renders only the noisiest FRAC of tiles")
     p.add_argument("--adaptive-tile", type=int, default=16)
     p.add_argument("--adaptive-warmup", type=int, default=2)
+    p.add_argument("--env-map", default=None,
+                   help="equirect environment map (PNG/PPM/HDR) used as the "
+                        "sky instead of the constant miss color")
     # not ported yet: each raises NotImplementedError when used
-    p.add_argument("--env-map", default=None)
     p.add_argument("--lens-radius", type=float, default=0.0)
     p.add_argument("--focus-dist", type=float, default=0.0)
     p.add_argument("--dist", action="store_true")
@@ -84,7 +89,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _NOT_PORTED = {
-    "env_map": "environment maps (ROADMAP.md A.13)",
     "lens_radius": "thin-lens depth of field (ROADMAP.md A.12)",
     "focus_dist": "thin-lens depth of field (ROADMAP.md A.12)",
     "dist": "multi-device rendering (ROADMAP.md A.17)",
@@ -119,6 +123,8 @@ def main(argv=None) -> int:
         scene = load_obj(args.obj or cornell_box_path())
     else:
         scene, cfg = procedural_scene(args.scene, args.scene_tris, cfg)
+    if args.env_map:
+        scene.env_map = args.env_map
     if args.adaptive is not None:
         from .integrate.adaptive import AdaptiveRenderer
 

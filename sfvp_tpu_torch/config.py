@@ -110,11 +110,16 @@ class RenderConfig:
     # re-sort the wavefront loop's rays every bounce by (direction octant,
     # position morton) on the BVH route (integrate/wavefront.py
     # make_sort_key); dead rays sort last. Execution knob: never changes
-    # the image. Off by default here (sfvp_tpu turns it on): on an H100
-    # the sort costs more than the trace gains, a 1024x1024 8-spp
-    # wavefront step of the 100k sphere taking ~190 ms with it and ~138 ms
-    # without (chip_smoke.py, ray-sort phase).
-    sort_bounce_rays: bool = False
+    # the image. None = on where the packet trace K6 traces (the streamed
+    # route), off elsewhere (integrate/wavefront.py sort_rays): K6's
+    # 1024-ray packets then hold the rays sfvp_tpu's hold (it sorts by
+    # default), so exact ties in t break alike, at a cost on an H100 (the
+    # 500k sphere's streamed step ~1.27 s sorted, ~0.51 s not;
+    # chip_smoke.py phase 23); on K3 the order changes nothing and the sort
+    # costs more than the trace gains (a 1024x1024 8-spp wavefront step of
+    # the 100k sphere ~190 ms with it, ~138 ms without; chip_smoke.py,
+    # ray-sort phase). True/False: force.
+    sort_bounce_rays: Optional[bool] = None
     # prepend the surface material type to that sort key; only engages on
     # scenes that mix materials. Execution knob: never changes the image.
     sort_material_key: bool = True

@@ -8,7 +8,11 @@
 // (megakernel_bvh.py:2173-2182), next-event estimation toward the area
 // lights with balance-heuristic MIS, whose shadow rays take the any-hit
 // walk of wide_bvh.cuh (the TPU kernel's second packet traversal per
-// bounce, shadow_occluded, megakernel_bvh.py:1447-1710). One thread owns
+// bounce, shadow_occluded, megakernel_bvh.py:1447-1710), an equirect
+// environment sky with its importance-sampled NEE and map_Kd textures
+// from a textured tree's aux rows (megakernel_bvh.py:303-400; K1's
+// fetches, common.cuh, at any map size: the TPU kernel's deferred env
+// records and pooled-proposal routing have no counterpart). One thread owns
 // one pixel and runs its spp
 // samples back to back, K1's loop (regen_render.cu) with the brute-force
 // triangle loop replaced by the wide-BVH walk of wide_bvh.cuh; each
@@ -42,13 +46,14 @@ namespace sfvp {
 // The walks of the single-level tree (K5).
 struct WideWalk {
   Wide w;
-  __device__ __forceinline__ bool closest(const Path& q, float tmax,
+  template <bool IMG>
+  __device__ __forceinline__ bool closest(const Path& q, const Params& p,
                                           float& t, Surface& f) const {
     const WideHit h =
-        wide_closest_hit(w, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, tmax);
+        wide_closest_hit(w, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, p.t_max);
     if (h.row < 0) return false;
     t = h.t;
-    f = wide_surface(w, h);
+    f = wide_surface<IMG>(w, h, p);
     return true;
   }
   __device__ __forceinline__ bool occluded(float ox, float oy, float oz,
@@ -58,13 +63,15 @@ struct WideWalk {
   }
 };
 
-// The walks of the two-level tree (K9).
+// The walks of the two-level tree (K9), which has neither textures nor an
+// environment map (the wrapper refuses them, ROADMAP.md A.13b).
 struct TwoLevelWalk {
   TwoLevel g;
-  __device__ __forceinline__ bool closest(const Path& q, float tmax,
+  template <bool IMG>
+  __device__ __forceinline__ bool closest(const Path& q, const Params& p,
                                           float& t, Surface& f) const {
-    const TwoLevelHit h =
-        two_level_closest_hit(g, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, tmax);
+    const TwoLevelHit h = two_level_closest_hit(g, q.ox, q.oy, q.oz, q.dx,
+                                                q.dy, q.dz, p.t_max);
     if (h.row < 0) return false;
     t = h.t;
     f = tl_surface(g, h);
@@ -77,7 +84,7 @@ struct TwoLevelWalk {
   }
 };
 
-template <class Walk, bool HAS_MIRRORS, bool NEE>
+template <class Walk, bool HAS_MIRRORS, bool NEE, bool IMG>
 __global__ void __launch_bounds__(kBlock)
 bvh_regen_kernel(const Walk walk, const float* __restrict__ lights,
                  const Params p, float* __restrict__ colr,
@@ -95,11 +102,11 @@ bvh_regen_kernel(const Walk walk, const float* __restrict__ lights,
       ++segs;
       float t;
       Surface f;
-      if (!walk.closest(q, p.t_max, t, f)) {
-        add_sky(p, q, cr, cg, cb);
+      if (!walk.template closest<IMG>(q, p, t, f)) {
+        add_miss<NEE, IMG>(p, q, cr, cg, cb);
         break;
       }
-      if (!shade_hit<HAS_MIRRORS, NEE, true>(
+      if (!shade_hit<HAS_MIRRORS, NEE, true, IMG>(
               p, lights, depth, t, f, q, cr, cg, cb,
               [&](float ox, float oy, float oz, float dx, float dy, float dz,
                   float smax) {
@@ -118,30 +125,51 @@ bvh_regen_kernel(const Walk walk, const float* __restrict__ lights,
 
 namespace {
 
-template <class Walk, bool HAS_MIRRORS, bool NEE>
+template <class Walk, bool HAS_MIRRORS, bool NEE, bool IMG>
 int launch(const Walk& walk, const float* lights, const sfvp::Params* p,
            float* colr, float* colg, float* colb, int* segs,
            cudaStream_t st) {
   const int blocks = (p->npix + sfvp::kBlock - 1) / sfvp::kBlock;
-  sfvp::bvh_regen_kernel<Walk, HAS_MIRRORS, NEE>
+  sfvp::bvh_regen_kernel<Walk, HAS_MIRRORS, NEE, IMG>
       <<<blocks, sfvp::kBlock, 0, st>>>(walk, lights, *p, colr, colg, colb,
                                          segs);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Walk>
+// IMG: an environment map or textures, which only the single-level walk
+// takes (K9 refuses them until ROADMAP.md A.13b)
+template <class Walk, bool NEE, bool IMG>
+int launch_mirrors(const Walk& walk, const float* lights,
+                   const sfvp::Params* p, int has_mirrors, float* colr,
+                   float* colg, float* colb, int* segs, cudaStream_t st) {
+  return has_mirrors ? launch<Walk, true, NEE, IMG>(walk, lights, p, colr,
+                                                     colg, colb, segs, st)
+                     : launch<Walk, false, NEE, IMG>(walk, lights, p, colr,
+                                                      colg, colb, segs, st);
+}
+
+template <class Walk, bool CAN_IMG>
 int launch_any(const Walk& walk, const float* lights, const sfvp::Params* p,
                int has_mirrors, float* colr, float* colg, float* colb,
                int* segs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p->use_nee)
-    return has_mirrors ? launch<Walk, true, true>(walk, lights, p, colr, colg,
-                                                  colb, segs, st)
-                       : launch<Walk, false, true>(walk, lights, p, colr,
-                                                   colg, colb, segs, st);
-  return has_mirrors ? launch<Walk, true, false>(walk, lights, p, colr, colg,
-                                                 colb, segs, st)
-                     : launch<Walk, false, false>(walk, lights, p, colr, colg,
+  const bool nee = p->use_nee || p->use_env_nee;
+  if constexpr (CAN_IMG) {
+    if (p->use_env || p->use_tex)
+      return nee ? launch_mirrors<Walk, true, true>(walk, lights, p,
+                                                    has_mirrors, colr, colg,
+                                                    colb, segs, st)
+                 : launch_mirrors<Walk, false, true>(walk, lights, p,
+                                                     has_mirrors, colr, colg,
+                                                     colb, segs, st);
+  } else {
+    if (p->use_env || p->use_tex)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return nee ? launch_mirrors<Walk, true, false>(walk, lights, p, has_mirrors,
+                                                 colr, colg, colb, segs, st)
+             : launch_mirrors<Walk, false, false>(walk, lights, p,
+                                                  has_mirrors, colr, colg,
                                                   colb, segs, st);
 }
 
@@ -154,8 +182,9 @@ extern "C" int sfvp_bvh_regen_render(const sfvp::Wide* w, const float* lights,
                                      const sfvp::Params* p, int has_mirrors,
                                      float* colr, float* colg, float* colb,
                                      int* segs, void* stream) {
-  return launch_any(sfvp::WideWalk{*w}, lights, p, has_mirrors, colr, colg,
-                    colb, segs, stream);
+  return launch_any<sfvp::WideWalk, true>(sfvp::WideWalk{*w}, lights, p,
+                                          has_mirrors, colr, colg, colb, segs,
+                                          stream);
 }
 
 extern "C" int sfvp_tlas_regen_render(const sfvp::TwoLevel* g,
@@ -163,6 +192,7 @@ extern "C" int sfvp_tlas_regen_render(const sfvp::TwoLevel* g,
                                       const sfvp::Params* p, int has_mirrors,
                                       float* colr, float* colg, float* colb,
                                       int* segs, void* stream) {
-  return launch_any(sfvp::TwoLevelWalk{*g}, lights, p, has_mirrors, colr,
-                    colg, colb, segs, stream);
+  return launch_any<sfvp::TwoLevelWalk, false>(sfvp::TwoLevelWalk{*g},
+                                               lights, p, has_mirrors, colr,
+                                               colg, colb, segs, stream);
 }

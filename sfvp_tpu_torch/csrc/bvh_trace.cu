@@ -6,7 +6,9 @@
 // of large scenes. One thread owns one ray of the (N,) wave, walks the tree
 // with its own stack (wide_bvh.cuh) and writes the 19 planes of the
 // Payload: t, u, v, the hit triangle's three vertices, albedo, emission
-// and packed material type (zeros and t = +inf on a miss).
+// and packed material type (zeros and t = +inf on a miss), and on a
+// textured tree the hit's interpolated vt and texid+1 (22 planes, from the
+// aux rows, sfvp_tpu bvh_packet.py:95-97, :278-334).
 //
 // What bounds it on an H100: dependent loads and divergence, not bytes.
 // Each pop reads one 256-byte node prefix or one 512-byte leaf row at an
@@ -33,20 +35,13 @@ bvh_trace_kernel(const Wide w, const float* __restrict__ rays, int n,
   const WideHit h = wide_closest_hit(
       w, rays[i], rays[m + i], rays[2 * m + i], rays[3 * m + i],
       rays[4 * m + i], rays[5 * m + i], rays[6 * m + i]);
-  out[i] = h.t;
-  out[m + i] = h.u;
-  out[2 * m + i] = h.v;
-  if (h.row >= 0) {
-    const float* s = w.tris + (size_t)h.row * kRowLanes + 16 * h.slot;
-    for (int j = 0; j < 16; ++j) out[(3 + j) * m + i] = __ldg(s + j);
-  } else {
-    for (int j = 0; j < 16; ++j) out[(3 + j) * m + i] = 0.0f;
-  }
+  write_payload(w, out, m, i, h.t, h.u, h.v, h.row, h.slot);
 }
 
 }  // namespace sfvp
 
-// rays: (7, n) planes ox oy oz dx dy dz tmax; out: (19, n) planes; n is
+// rays: (7, n) planes ox oy oz dx dy dz tmax; out: (19, n) planes, (22, n)
+// with w->aux; n is
 // below 2**31 (kernels/build.py launch_bvh_trace checks). Returns
 // cudaGetLastError() of the launch on ``stream``.
 extern "C" int sfvp_bvh_trace(const sfvp::Wide* w, const float* rays, int n,

@@ -176,22 +176,13 @@ packet_trace2_kernel(const Wide w, const float* __restrict__ rays, int n,
       }
     }
   }
-  if (real) {
-    out[i] = bt;
-    out[m + i] = bu;
-    out[2 * m + i] = bv;
-    if (brow >= 0) {
-      const float* sl = w.tris + (size_t)brow * kRowLanes + 16 * bslot;
-      for (int j = 0; j < 16; ++j) out[(3 + j) * m + i] = __ldg(sl + j);
-    } else {
-      for (int j = 0; j < 16; ++j) out[(3 + j) * m + i] = 0.0f;
-    }
-  }
+  if (real) write_payload(w, out, m, i, bt, bu, bv, brow, bslot);
 }
 
 }  // namespace sfvp
 
-// rays: (7, n) planes ox oy oz dx dy dz tmax; out: (19, n) planes; n is
+// rays: (7, n) planes ox oy oz dx dy dz tmax; out: (19, n) planes, (22, n)
+// with w->aux (the texture planes, as K3's); n is
 // below 2**31, max_stack + leaf_q <= kPacketStack and leaf_q a power of two
 // <= kMaxLeafQ (kernels/build.py checks). Returns cudaGetLastError() of the
 // launch on ``stream``.

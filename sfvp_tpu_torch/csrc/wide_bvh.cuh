@@ -31,6 +31,9 @@ struct Wide {
   const float* tris;   // (n_leaf_rows, 128)
   int n_nodes, n_leaf_rows, max_stack;
   float t_min, det_eps;
+  // a textured tree's rows beside ``tris``: slot k's lanes 16k..16k+6 hold
+  // u0 v0 u1 v1 u2 v2 texid+1 (accel/wide.py uv_array); null otherwise
+  const float* aux;
 };
 
 // Stack entries a thread can hold; the wrappers refuse a tree whose
@@ -291,14 +294,64 @@ __device__ __forceinline__ Surface slot_surface(const float* s,
   return f;
 }
 
-// The shading data of a hit of the single-level tree (vertices as stored).
+// The texture coordinates of a hit (t, u, v) on slot a of a textured
+// tree's aux rows: the per-corner vt interpolated with the barycentrics,
+// as sfvp_tpu's K3 (bvh_packet.py:326-334), and texid+1.
+__device__ __forceinline__ void slot_uv(const float* a, float u, float v,
+                                        float& tu, float& tv, float& tid1) {
+  const float wb = 1.0f - u - v;
+  tu = __ldg(a) * wb + __ldg(a + 2) * u + __ldg(a + 4) * v;
+  tv = __ldg(a + 1) * wb + __ldg(a + 3) * u + __ldg(a + 5) * v;
+  tid1 = __ldg(a + 6);
+}
+
+// The shading data of a hit of the single-level tree (vertices as stored),
+// the albedo times the map_Kd texel on a textured tree (IMG: the kernel
+// was built for one, common.cuh table_surface).
+template <bool IMG>
 __device__ __forceinline__ Surface wide_surface(const Wide& w,
-                                                const WideHit& h) {
-  const float* s = w.tris + (size_t)h.row * kRowLanes + 16 * h.slot;
+                                                const WideHit& h,
+                                                const Params& prm) {
+  const size_t off = (size_t)h.row * kRowLanes + 16 * h.slot;
+  const float* s = w.tris + off;
   float p[9];
 #pragma unroll
   for (int j = 0; j < 9; ++j) p[j] = __ldg(s + j);
-  return slot_surface(s, p, h.u, h.v);
+  Surface f = slot_surface(s, p, h.u, h.v);
+  if (IMG && w.aux != nullptr) {
+    float tu, tv, tid1, tr, tg, tb;
+    slot_uv(w.aux + off, h.u, h.v, tu, tv, tid1);
+    texel_bilinear(prm, (int)tid1 - 1, tu, tv, tr, tg, tb);
+    f.dr = f.dr * tr;
+    f.dg = f.dg * tg;
+    f.db = f.db * tb;
+  }
+  return f;
+}
+
+// The payload planes of a hit (or a miss, row -1) of ray i of an (m,) wave:
+// t, u, v, then the slot's 16 lanes (zeros on a miss), then on a textured
+// tree texu, texv and texid+1 (zeros on a miss), the planes of K3 and K6.
+__device__ __forceinline__ void write_payload(const Wide& w, float* out,
+                                              size_t m, size_t i, float t,
+                                              float u, float v, int row,
+                                              int slot) {
+  out[i] = t;
+  out[m + i] = u;
+  out[2 * m + i] = v;
+  float tu = 0.0f, tv = 0.0f, tid1 = 0.0f;
+  if (row >= 0) {
+    const size_t off = (size_t)row * kRowLanes + 16 * slot;
+    for (int j = 0; j < 16; ++j) out[(3 + j) * m + i] = __ldg(w.tris + off + j);
+    if (w.aux != nullptr) slot_uv(w.aux + off, u, v, tu, tv, tid1);
+  } else {
+    for (int j = 0; j < 16; ++j) out[(3 + j) * m + i] = 0.0f;
+  }
+  if (w.aux != nullptr) {
+    out[19 * m + i] = tu;
+    out[20 * m + i] = tv;
+    out[21 * m + i] = tid1;
+  }
 }
 
 }  // namespace sfvp

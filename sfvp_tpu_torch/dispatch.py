@@ -15,17 +15,30 @@ instanced routes of select_instanced_render_step (dispatch.py:373-531):
     or with ``megakernel_regen=False`` by the wavefront loop
     (integrate/wavefront.py) over the payload trace K3 and, with
     ``cfg.use_nee``, the any-hit trace K4 for its shadow rays
-    (kernels/bvh_packet.py), with the per-bounce ray sort when
-    ``cfg.sort_bounce_rays`` is on; on a streamed scene
-    (``stream_tris``) over the packet trace K6
-    (kernels/bvh_packet2.py) for both, as sfvp_tpu's
-    ``packet_trace_kwargs`` (dispatch.py:534-561);
+    (kernels/bvh_packet.py); on a streamed scene (``stream_tris``) over
+    the packet trace K6 (kernels/bvh_packet2.py) for both, as sfvp_tpu's
+    ``packet_trace_kwargs`` (dispatch.py:534-561); the loop sorts its
+    bounce rays where integrate/wavefront.py ``sort_rays`` says (by
+    default on K6's route only);
   - instanced (a list of accel.instances.Instance): the two-level BVH
     (accel/tlas.py) traced by K9 (kernels/megakernel_bvh.py with ``tl=``)
     by default, or with ``megakernel_regen=False`` by the wavefront loop
     over the two-level payload trace K7 and, with ``cfg.use_nee``, the
     two-level any-hit trace K8 (kernels/bvh_tlas.py); materials and
     lights come from the flattened scene's buffers.
+
+Environment maps (the sky of a miss, and under ``cfg.use_nee`` its
+importance-sampled NEE) and map_Kd textures run on every single-level
+route: inside K1 and K5 at any map or atlas size (sfvp_tpu's
+ENV_VMEM_MAX_BYTES, TEX_VMEM_MAX_BYTES and MAX_KERNEL_TEXTURES gates,
+dispatch.py:164-205, are memory gates and are dropped, and so are its
+deferred env records and its preference for the wavefront loop under
+env NEE on an oversized map, dispatch.py:303-316: K5 draws the same
+streams); on the wavefront loop around K3, K4 and K6, whose payload
+carries the hit's vt and texture id; and in the eager loop that brute
+force with ``megakernel_regen=False`` takes with either, as sfvp_tpu
+takes its jnp loop (K2 has neither, dispatch.py:245-256). Instanced
+scenes refuse both (ROADMAP.md A.13b).
 
 ``select_wavefront_kwargs`` gives the adaptive sampler
 (integrate/adaptive.py) the same trace as the wavefront loop.
@@ -58,7 +71,7 @@ import sys
 from typing import Callable, Optional
 
 from .config import RenderConfig
-from .integrate.wavefront import require_slice
+from .integrate.wavefront import require_slice, sort_rays
 
 
 def _dbg(choice: str, **why) -> None:
@@ -89,14 +102,16 @@ def packet_trace_kwargs(cfg: RenderConfig, dw, stream: bool) -> dict:
     """make_render_step kwargs of the wavefront loop over the device wide
     BVH ``dw``: K6 as the payload trace and no any-hit kernel (shadow rays
     go through K6) on a streamed scene, else K3 and, with
-    ``cfg.use_nee``, K4 (sfvp_tpu dispatch.py:534-561)."""
+    ``cfg.use_nee``, K4 (sfvp_tpu dispatch.py:534-561); and ``stream``,
+    from which the loop decides whether it sorts its bounce rays
+    (integrate/wavefront.py sort_rays)."""
     from .kernels.bvh_packet import make_packet_occlusion, make_packet_trace
 
     if stream:
         from .kernels.bvh_packet2 import make_packet_trace2
 
         return {"trace_payload_fn": make_packet_trace2(dw, t_min=cfg.t_min),
-                "occlusion_fn": None}
+                "occlusion_fn": None, "stream": True}
     return {"trace_payload_fn": make_packet_trace(dw, t_min=cfg.t_min),
             "occlusion_fn": (make_packet_occlusion(dw, t_min=cfg.t_min)
                              if cfg.use_nee else None)}
@@ -123,7 +138,8 @@ def select_wavefront_kwargs(cfg: RenderConfig, buffers, wide=None) -> dict:
 
     stream = stream_tris(cfg, wide)
     _dbg("wavefront(packet kernels)", stream=stream, tris=buffers.num_tris,
-         device=buffers.device, sort=cfg.sort_bounce_rays, nee=cfg.use_nee)
+         device=buffers.device, sort=sort_rays(cfg, stream), nee=cfg.use_nee,
+         env=buffers.env is not None, tex=buffers.has_textures)
     return packet_trace_kwargs(cfg, device_wide(wide, buffers.device),
                                stream)
 
@@ -166,7 +182,7 @@ def select_render_step(cfg: RenderConfig, buffers,
 
         _dbg("megakernel_regen(brute)", tris=t, device=dev)
         return make_regen_render_step(cfg, buffers, global_shape=global_shape)
-    if cfg.use_nee:
+    if cfg.use_nee or buffers.env is not None or buffers.has_textures:
         from .integrate.wavefront import make_render_step
 
         _dbg("wavefront(brute)", tris=t, device=dev)
@@ -177,12 +193,25 @@ def select_render_step(cfg: RenderConfig, buffers,
     return make_wave_render_step(cfg, buffers, global_shape=global_shape)
 
 
+def require_single_level_images(buffers) -> None:
+    """Raise NotImplementedError for an environment map or map_Kd textures
+    on an instanced scene (``buffers`` the flattened scene's): the
+    two-level routes K7, K8 and K9 come with them in ROADMAP.md A.13b."""
+    what = [w for w, on in (("environment maps", buffers.env is not None),
+                            ("map_Kd textures", buffers.has_textures)) if on]
+    if what:
+        raise NotImplementedError(
+            f"{' and '.join(what)} on instanced scenes (the two-level "
+            "routes K7, K8, K9) are not ported to sfvp_tpu_torch yet "
+            "(ROADMAP.md A.13b)")
+
+
 def instanced_wavefront_kwargs(cfg: RenderConfig, dt) -> dict:
     """make_render_step kwargs of the instanced wavefront loop over the
     device two-level BVH ``dt`` (kernels/bvh_tlas.device_two_level): K7
     as the payload trace and, with ``cfg.use_nee``, K8 as the shadow
     trace, as sfvp_tpu's instanced_wavefront_kwargs on its pallas
-    backend."""
+    backend; the bounce rays unsorted unless the config asks."""
     from .kernels.bvh_tlas import make_two_level_occlusion, make_two_level_trace
 
     return {
@@ -201,8 +230,10 @@ def select_instanced_render_step(cfg: RenderConfig, flat_buffers, tl,
     its host TwoLevelBVH (accel.tlas.build_two_level); the Renderer builds
     both once at set-up. K9 by default, the wavefront loop over K7 (and K8
     under NEE) with ``megakernel_regen=False``. The config is checked on
-    the flattened buffers, so the features of later slices still raise."""
+    the flattened buffers, so the features of later slices still raise,
+    an environment map or textures among them (A.13b)."""
     require_slice(cfg, flat_buffers)
+    require_single_level_images(flat_buffers)
     from .kernels.bvh_tlas import device_two_level
 
     dev = flat_buffers.device

@@ -160,7 +160,11 @@ class AdaptiveRenderer:
 
     def __init__(self, cfg: RenderConfig, scene, device, frac: float = 0.25,
                  tile: int = 16, warmup: int = 2):
-        from ..dispatch import instanced_wavefront_kwargs, resolve_traversal
+        from ..dispatch import (
+            instanced_wavefront_kwargs,
+            require_single_level_images,
+            resolve_traversal,
+        )
         from ..scene import upload
 
         self.cfg, self.frac, self.tile, self.warmup = cfg, frac, tile, warmup
@@ -174,6 +178,7 @@ class AdaptiveRenderer:
             from ..kernels.bvh_tlas import device_two_level
 
             self.buffers = upload(flatten_instances(scene), device=self.device)
+            require_single_level_images(self.buffers)
             t0 = time.perf_counter()
             self.tl = build_two_level(scene)
             self.bvh_build_s = time.perf_counter() - t0

@@ -31,8 +31,11 @@ Parity-mode semantics preserved exactly (ref shaders/raygen.rgen:41-91):
   - progressive accumulation new = (color + old*frame)/(frame+1), in f32
 
 The subset is diffuse and mirror materials, uniform and cosine sampling,
-Russian roulette, and next-event estimation toward area lights with
-balance-heuristic MIS (integrate/lights.py), over brute force or the wide
+Russian roulette, next-event estimation toward area lights with
+balance-heuristic MIS (integrate/lights.py), map_Kd textures and an
+equirect environment sky with its own importance-sampled NEE
+(scene/textures.py, lights.py EnvDistribution; sfvp_tpu wavefront.py
+:105-114, :168-193, :412-453, :515-536), over brute force or the wide
 BVH. Everything else raises NotImplementedError in ``require_slice`` and
 never falls back.
 """
@@ -48,6 +51,7 @@ from .. import rng
 from ..camera import generate_rays_soa
 from ..config import RenderConfig
 from ..kernels.intersect import trace_brute
+from ..scene.textures import sample_bilinear, sample_environment
 from ..sampling import (
     INV_PI,
     TWO_PI,
@@ -56,7 +60,15 @@ from ..sampling import (
 )
 from ..utils import vec
 from ..utils.vec import f32
-from .lights import LightTable, build_light_table_from_buffers, sample_light
+from .lights import (
+    EnvDistribution,
+    LightTable,
+    build_light_table_from_buffers,
+    env_distribution_for,
+    env_pdf,
+    sample_env,
+    sample_light,
+)
 
 # brdf * cos / pdf of uniform sampling: Kd/pi * cos * 2pi, the float32
 # product the JAX package forms as (INV_PI * TWO_PI)
@@ -127,16 +139,27 @@ def shade_inputs(scene, hit):
     diffuse = (scene.dr[prim], scene.dg[prim], scene.db[prim])
     emission = (scene.er[prim], scene.eg[prim], scene.eb[prim])
     specular = (scene.sr[prim], scene.sg[prim], scene.sb[prim])
+    if scene.textures is not None:
+        # map_Kd: the per-corner vt interpolated with the barycentrics of
+        # the position, then a bilinear fetch (sfvp_tpu wavefront.py:105-114)
+        u_hit = (scene.u0[prim] * w + scene.u1[prim] * hit.u
+                 + scene.u2[prim] * hit.v)
+        v_hit = (scene.v0t[prim] * w + scene.v1t[prim] * hit.u
+                 + scene.v2t[prim] * hit.v)
+        texc = sample_bilinear(scene.textures, scene.tex[prim], u_hit, v_hit)
+        diffuse = vec.mul(diffuse, texc)
     return position, normal, diffuse, emission, specular, scene.mtype[prim]
 
 
-def shade_from_payload(pay):
+def shade_from_payload(pay, textures=None):
     """Shading inputs from a payload trace (kernels/bvh_packet.py), as
     sfvp_tpu's _shade_from_payload (wavefront.py:258-290), with 1/sqrt as
     two correctly rounded ops where it calls rsqrt. The wide layout keeps
     Ks in the albedo lanes of mirrors and packs mtype + roughness in one
-    lane (accel/wide.py). Returns (miss, position, normal, diffuse,
-    emission, specular, mtype, t)."""
+    lane (accel/wide.py). With ``textures`` and a textured payload, the
+    albedo is modulated by the bilinear fetch at the payload's (texu,
+    texv, texid); the mirror tint stays as it is. Returns (miss,
+    position, normal, diffuse, emission, specular, mtype, t)."""
     miss = torch.isinf(pay.t)
     w = 1.0 - pay.u - pay.v
     position = vec.add(
@@ -146,7 +169,11 @@ def shade_from_payload(pay):
     nrm = vec.cross(vec.sub(pay.p1, pay.p0), vec.sub(pay.p2, pay.p0))
     inv_len = vec.inv_sqrt(torch.clamp_min(vec.dot(nrm, nrm), 1e-30))
     normal = vec.scale(nrm, -inv_len)
-    return (miss, position, normal, pay.albedo, pay.emission, pay.albedo,
+    diffuse = pay.albedo
+    if textures is not None and pay.texid is not None:
+        diffuse = vec.mul(diffuse, sample_bilinear(textures, pay.texid,
+                                                   pay.texu, pay.texv))
+    return (miss, position, normal, diffuse, pay.emission, pay.albedo,
             torch.floor(pay.mtype), pay.t)
 
 
@@ -175,13 +202,15 @@ def brute_occluded(cfg: RenderConfig, scene) -> Callable:
     return occluded
 
 
-def payload_surface(cfg: RenderConfig, trace_payload_fn) -> Callable:
+def payload_surface(cfg: RenderConfig, trace_payload_fn,
+                    textures=None) -> Callable:
     """Trace hook of ``trace_wave`` over a payload trace
-    ``trace_payload_fn(o, d, t_max, active) -> Payload``."""
+    ``trace_payload_fn(o, d, t_max, active) -> Payload``, with the scene's
+    texture table for a textured tree."""
 
     def surface(o, d, active):
         return shade_from_payload(
-            trace_payload_fn(o, d, cfg.t_max, active=active))
+            trace_payload_fn(o, d, cfg.t_max, active=active), textures)
 
     return surface
 
@@ -198,15 +227,32 @@ def payload_occluded(trace_payload_fn) -> Callable:
     return occluded
 
 
-def make_sort_key(cfg: RenderConfig, scene) -> Optional[Callable]:
+def sort_rays(cfg: RenderConfig, stream: bool) -> bool:
+    """Whether the wavefront loop sorts its bounce rays: ``cfg.
+    sort_bounce_rays`` when set; by default where K6 traces (``stream``),
+    and nowhere else. K6 walks the tree per packet of 1024 consecutive
+    rays, so which triangle wins an exact tie in t depends on which rays
+    share a packet: sorted as sfvp_tpu sorts them by default, its packets
+    hold the rays of sfvp_tpu's. The parity has a price on an H100: the
+    sort gathers a bounce wave's live rays into few packets, whose walks
+    then run one after another in few blocks (K6 2x slower on the 500k
+    sphere's third bounce, chip_smoke.py phase 24). K3 and K7 trace per
+    ray, where the order changes no result and the sort only costs
+    time."""
+    if cfg.sort_bounce_rays is not None:
+        return bool(cfg.sort_bounce_rays)
+    return bool(stream)
+
+
+def make_sort_key(cfg: RenderConfig, scene, on: bool) -> Optional[Callable]:
     """The per-bounce ray sort key of sfvp_tpu's payload path
-    (wavefront.py:200-256), or None when ``cfg.sort_bounce_rays`` is off:
+    (wavefront.py:200-256), or None when off (``sort_rays``):
     ``key(o, d, done, prev_mtype) -> (N,) int32``, (material << 24) |
     (direction octant << 21) | 7-bit-per-axis position morton, the
     material bits only on scenes with mirrors and when
     ``cfg.sort_material_key``; dead rays get 2**30. Sorting permutes the
     rays of a wave and never changes a ray's result."""
-    if not cfg.sort_bounce_rays:
+    if not on:
         return None
     sort_material = cfg.sort_material_key and has_mirror_faces(scene)
     t = scene.num_tris
@@ -246,23 +292,54 @@ def make_sort_key(cfg: RenderConfig, scene) -> Optional[Callable]:
 
 
 def emission_weight(use_mis: bool, count_emit, pdf_prev, miss, d, normal,
-                    t_hit, emission, inv_area: float):
-    """Weight of the emission a path segment adds under NEE
-    (sfvp_tpu/integrate/wavefront.py:455-472; the fused kernels compute the
-    same, megakernel_regen.py:603-628): 1 on camera rays, after specular
-    bounces and on misses; otherwise 0, or under MIS the balance-heuristic
-    weight p_bsdf / (p_bsdf + p_nee) of an emissive hit, with p_nee the
-    area pdf 1/total_area turned into solid angle by t^2 / |cos|."""
-    full = count_emit | miss
+                    t_hit, emission, inv_area: Optional[float],
+                    p_env=None, env_nee: bool = False):
+    """Weight of the emission a path segment adds under NEE, in the
+    branches of sfvp_tpu/integrate/wavefront.py:380-453 (the fused kernels
+    compute the same, megakernel_regen.py:545-628). ``inv_area``: the area
+    pdf 1/total_area of the area lights, None without any; ``env_nee``: the
+    environment is light-sampled too, ``p_env`` the env pdf of ``d`` under
+    MIS (lights.env_pdf).
+
+    Area lights alone: 1 on camera rays, after mirrors and on misses;
+    otherwise 0, or under MIS the balance weight p_bsdf / (p_bsdf + p_nee)
+    of an emissive hit, with p_nee the area pdf turned into solid angle by
+    t^2 / |cos|. The environment alone: 1 on every hit, and on a miss 1
+    after a camera ray or a mirror, else 0 or under MIS p_bsdf / (p_bsdf +
+    p_env). Both: each source's own rule (a miss the env's, a hit the
+    area lights')."""
+    area = inv_area is not None
     if not use_mis:
+        if area and env_nee:
+            full = count_emit
+        elif env_nee:
+            full = count_emit | torch.logical_not(miss)
+        else:
+            full = count_emit | miss
         return full.to(torch.float32)
+    if env_nee:
+        w_env = pdf_prev / torch.clamp_min(pdf_prev + p_env, 1e-30)
+        if not area:
+            return torch.where(count_emit | torch.logical_not(miss), 1.0,
+                               w_env)
     cos_l_hit = torch.abs(vec.dot(d, normal))
     t_safe = torch.where(miss, 0.0, t_hit)
     p_nee_hit = (t_safe * t_safe) * inv_area / torch.clamp_min(cos_l_hit,
                                                                1e-6)
     w_bsdf = pdf_prev / torch.clamp_min(pdf_prev + p_nee_hit, 1e-30)
     is_emissive = (vec.maxc(emission) > 0) & torch.logical_not(miss)
-    return torch.where(full, 1.0, torch.where(is_emissive, w_bsdf, 0.0))
+    surf = torch.where(is_emissive, w_bsdf, 0.0)
+    if env_nee:
+        return torch.where(count_emit, 1.0, torch.where(miss, w_env, surf))
+    return torch.where(count_emit | miss, 1.0, surf)
+
+
+def bsdf_pdf(uniform: bool, cos_s):
+    """Solid-angle pdf of the diffuse bounce toward a light direction:
+    1/(2 pi) for uniform sampling, max(cos, 0)/pi for cosine sampling."""
+    if uniform:
+        return torch.full_like(cos_s, UNIFORM_PDF)
+    return torch.clamp_min(cos_s, 0.0) * INV_PI
 
 
 def nee_direct(lights: LightTable, r_sel, rl1, rl2, position, normal,
@@ -304,10 +381,7 @@ def nee_direct(lights: LightTable, r_sel, rl1, rl2, position, normal,
             p_nee_sa = dist2 / (area * torch.clamp_min(cos_l, 1e-6))
         else:
             p_nee_sa = dist2 * pdf_area / torch.clamp_min(cos_l, 1e-6)
-        if uniform:
-            p_bsdf_l = torch.full_like(cos_s, UNIFORM_PDF)
-        else:
-            p_bsdf_l = torch.clamp_min(cos_s, 0.0) * INV_PI
+        p_bsdf_l = bsdf_pdf(uniform, cos_s)
         w_nee = p_nee_sa / torch.clamp_min(p_nee_sa + p_bsdf_l, 1e-30)
     if fused:
         g_pdf = cos_s * cos_l / dist2 * area
@@ -324,11 +398,53 @@ def nee_direct(lights: LightTable, r_sel, rl1, rl2, position, normal,
                                                 like=cos_s))
 
 
+def env_nee_direct(env, dist: EnvDistribution, r_sel, rl1, rl2, position,
+                   normal, diffuse, weight, shadow_q, occluded, use_mis: bool,
+                   uniform: bool, fused: bool, t_max: float):
+    """The direct light one environment sample brings to a hit, times the
+    path weight: a (3,) tuple of (N,), zero where ``shadow_q`` is off, the
+    direction is below the surface or its shadow ray (to t_max (1 - 1e-3))
+    is blocked. The direction comes from the env importance distribution
+    (lights.sample_env), the radiance from the map (sample_environment).
+
+    Two float orders of the same estimate: the wavefront integrator's
+    (sfvp_tpu/integrate/wavefront.py:515-536: (brdf * Le) * (cos_s / pdf),
+    then the MIS weight, then the path weight) and, with ``fused``, that of
+    the fused kernels K1 and K5 (megakernel_regen.py:799-909: w * brdf *
+    Le * g_w, g_w = cos_s / pdf times the MIS weight)."""
+    wl, pdf_sa = sample_env(dist, r_sel, rl1, rl2)
+    cos_s = vec.dot(wl, normal)
+    brdf_l = vec.scale(diffuse, INV_PI)
+    shadow_q = shadow_q & (cos_s > 0)
+    smax = torch.full_like(cos_s, f32(np.float32(t_max)
+                                     * np.float32(SHADOW_SCALE)))
+    visible = shadow_q & torch.logical_not(occluded(position, wl, smax,
+                                                    shadow_q))
+    env_le = sample_environment(env, wl)
+    if use_mis:
+        w_env = pdf_sa / torch.clamp_min(pdf_sa + bsdf_pdf(uniform, cos_s),
+                                         1e-30)
+    if fused:
+        g_w = cos_s / torch.clamp_min(pdf_sa, 1e-12)
+        if use_mis:
+            g_w = g_w * w_env
+        direct = vec.scale(vec.mul(vec.mul(weight, brdf_l), env_le), g_w)
+    else:
+        inv_pdf = 1.0 / torch.clamp_min(pdf_sa, 1e-12)
+        direct = vec.scale(vec.mul(brdf_l, env_le), cos_s * inv_pdf)
+        if use_mis:
+            direct = vec.scale(direct, w_env)
+        direct = vec.mul(weight, direct)
+    return vec.where(visible, direct, vec.splat((0.0, 0.0, 0.0),
+                                                like=cos_s))
+
+
 def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
                global_shape, color=None, has_mirrors: bool = False,
                rr_every_depth: bool = True, surface=None, sort_key=None,
                lights: Optional[LightTable] = None, occluded=None,
-               fused_nee: bool = False):
+               fused_nee: bool = False, env=None,
+               env_dist: Optional[EnvDistribution] = None):
     """Trace one wave of camera paths: ray i is sample ``sample_ids[i]`` of
     global pixel (px[i], py[i]). Each segment's radiance is added into
     ``color`` (zeros when None) in depth order.
@@ -350,18 +466,27 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
     without them. At every hit the light sample's three numbers are drawn
     before the bounce's. ``occluded(o, d, t_max, active) -> (N,) bool``:
     the shadow-ray hook (``brute_occluded`` over ``scene`` when None).
-    ``fused_nee``: the NEE term in the fused kernels' float order
-    (``nee_direct``), as the twins of K1 and K5 take it.
+    ``fused_nee``: the NEE terms in the fused kernels' float order
+    (``nee_direct``, ``env_nee_direct``), as the twins of K1 and K5 take
+    them.
+
+    ``env`` (scene/textures.py TextureTable): the equirect sky a miss
+    reads instead of ``cfg.sky_emission``; ``env_dist``
+    (lights.env_distribution_for) samples it at every hit under
+    ``cfg.use_nee``, after the area lights' sample, with its own three
+    numbers, alone or beside the area lights.
 
     Returns (color tuple of (M,) f32, segments traced per ray (M,) int32).
     """
     gh, gw = global_shape
     uniform = cfg.sampling == "uniform"
     use_nee = cfg.use_nee and lights is not None
-    use_mis = cfg.use_mis and use_nee
+    use_env_nee = cfg.use_nee and env_dist is not None
+    any_nee = use_nee or use_env_nee
+    use_mis = cfg.use_mis and any_nee
     if surface is None:
         surface = brute_surface(cfg, scene)
-    if use_nee and occluded is None:
+    if any_nee and occluded is None:
         occluded = brute_occluded(cfg, scene)
     seed = rng.sample_seed(px, py, sample_ids, frame, cfg.spp_per_step)
     r1, seed = rng.rand(seed)
@@ -374,7 +499,7 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
     dev = o[0].device
     done = torch.zeros(o[0].shape, dtype=torch.bool, device=dev)
     segs = torch.zeros(o[0].shape, dtype=torch.int32, device=dev)
-    if use_nee:
+    if any_nee:
         # emission counts in full on camera rays and after mirrors
         count_emit = torch.ones(o[0].shape, dtype=torch.bool, device=dev)
         pdf_prev = torch.zeros(o[0].shape, device=dev)
@@ -388,7 +513,7 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
                               stable=True).indices
             fl = [*o, *d, *weight, *color, prev_mtype]
             it = [seed, done.long(), segs.long(), slot]
-            if use_nee:
+            if any_nee:
                 fl.append(pdf_prev)
                 it.append(count_emit.long())
             fl = torch.stack(fl)[:, perm]
@@ -397,17 +522,22 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
             prev_mtype = fl[12]
             seed, done, segs, slot = (it[0], it[1].bool(), it[2].int(),
                                       it[3])
-            if use_nee:
+            if any_nee:
                 pdf_prev, count_emit = fl[13], it[4].bool()
         active = torch.logical_not(done)
         miss, position, normal, diffuse, emission, spec, mtype, t_hit = (
             surface(o, d, active))
+        if env is not None:
+            # image-based sky: the equirect map in the miss direction
+            sky = sample_environment(env, d)
         emission = vec.where(miss, sky, emission)
         emit_w = active.to(torch.float32)
-        if use_nee:
-            emit_w = emission_weight(use_mis, count_emit, pdf_prev, miss, d,
-                                     normal, t_hit, emission,
-                                     lights.inv_area) * emit_w
+        if any_nee:
+            emit_w = emission_weight(
+                use_mis, count_emit, pdf_prev, miss, d, normal, t_hit,
+                emission, lights.inv_area if use_nee else None,
+                env_pdf(env_dist, d) if use_env_nee and use_mis else None,
+                use_env_nee) * emit_w
         color = vec.add(color, vec.scale(vec.mul(weight, emission), emit_w))
 
         is_mirror = (mtype == 1) & torch.logical_not(miss)
@@ -419,6 +549,15 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
             color = vec.add(color, nee_direct(
                 lights, r_sel, rl1, rl2, position, normal, diffuse, weight,
                 shadow_q, occluded, use_mis, uniform, fused_nee))
+        if use_env_nee:
+            r_sel, seed = rng.rand(seed)
+            rl1, seed = rng.rand(seed)
+            rl2, seed = rng.rand(seed)
+            shadow_q = active & torch.logical_not(miss | is_mirror)
+            color = vec.add(color, env_nee_direct(
+                env, env_dist, r_sel, rl1, rl2, position, normal, diffuse,
+                weight, shadow_q, occluded, use_mis, uniform, fused_nee,
+                cfg.t_max))
 
         r1, seed = rng.rand(seed)
         r2, seed = rng.rand(seed)
@@ -460,7 +599,7 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
         weight = vec.where(cont, vec.mul(weight, scale), weight)
         done = torch.logical_not(cont)
         segs += active.to(torch.int32)
-        if use_nee:
+        if any_nee:
             count_emit = is_mirror
         if use_mis:
             pdf_prev = torch.where(cont, new_pdf, pdf_prev)
@@ -525,7 +664,8 @@ def sum_chunks(cfg: RenderConfig, npix: int, wave, device):
 def make_render_step(cfg: RenderConfig, scene,
                      global_shape: Optional[tuple] = None,
                      trace_payload_fn: Optional[Callable] = None,
-                     occlusion_fn: Optional[Callable] = None):
+                     occlusion_fn: Optional[Callable] = None,
+                     stream: bool = False):
     """Build ``render_step(state, row0=0) -> state`` for a (local) image of
     the shape of ``state.accum``, on the device of ``scene``.
 
@@ -539,9 +679,16 @@ def make_render_step(cfg: RenderConfig, scene,
     force. Then the step traces the image in ``PACKET_TILE`` square pixel
     tiles when the tile divides both sides, so that K6's
     1024-ray packets are compact screen tiles (sfvp_tpu wavefront.py
-    :704-746); and, when ``cfg.sort_bounce_rays`` is on, every bounce
+    :704-746); and, when ``sort_rays(cfg, stream)`` is on (``stream``:
+    the payload trace is K6, dispatch.packet_trace_kwargs), every bounce
     after the first sorts the wave by ``make_sort_key``. Neither changes a
     pixel's colour sum.
+
+    A textured scene is shaded through its texture table (the payload
+    trace carries the hit's vt and texture id); a scene with an
+    environment map reads it on every miss and, under ``cfg.use_nee``,
+    samples it at every hit (``env_nee_direct``, its distribution built
+    once here).
 
     With ``cfg.use_nee`` the scene's area lights are sampled at every hit
     (integrate/lights.py, the table built once here) and their shadow rays
@@ -562,11 +709,14 @@ def make_render_step(cfg: RenderConfig, scene,
     mirrors = has_mirror_faces(scene)
     dev = scene.device
     lights = build_light_table_from_buffers(scene) if cfg.use_nee else None
+    env = scene.env
+    env_dist = (env_distribution_for(env) if cfg.use_nee and env is not None
+                else None)
     if trace_payload_fn is None:
         surface, sort_key, ts = brute_surface(cfg, scene), None, 0
     else:
-        surface = payload_surface(cfg, trace_payload_fn)
-        sort_key = make_sort_key(cfg, scene)
+        surface = payload_surface(cfg, trace_payload_fn, scene.textures)
+        sort_key = make_sort_key(cfg, scene, sort_rays(cfg, stream))
         ts = PACKET_TILE
         if occlusion_fn is None:
             occlusion_fn = payload_occluded(trace_payload_fn)
@@ -581,7 +731,8 @@ def make_render_step(cfg: RenderConfig, scene,
             color, seg = trace_wave(cfg, scene, pxw, pyw, s_ids, frame,
                                     gshape, has_mirrors=mirrors,
                                     surface=surface, sort_key=sort_key,
-                                    lights=lights, occluded=occlusion_fn)
+                                    lights=lights, occluded=occlusion_fn,
+                                    env=env, env_dist=env_dist)
             return (*color, seg)
 
         return sum_chunks(cfg, n, wave, dev)

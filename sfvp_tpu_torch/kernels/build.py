@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -30,7 +31,7 @@ import torch
 from ..config import RenderConfig
 from ..integrate.lights import N_LIGHT_ROWS
 from ..integrate.wavefront import UNIFORM_PDF, UNIFORM_SCALE
-from ..sampling import INV_PI, TWO_PI
+from ..sampling import INV_PI, INV_TWO_PI, TWO_PI
 from ..utils.vec import f32
 from .intersect import _DET_EPS
 
@@ -42,9 +43,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
-# 25 rows of float32 per triangle (csrc/common.cuh kSmemRows) in the 48 KB
-# of shared memory a block gets without opting in to more
-MAX_KERNEL_TRIS = 480
+# shared memory a block of K1 or K2 may opt in to on an H100 (227 KB);
+# the table takes its host rows and 6 edge rows per triangle
+# (csrc/common.cuh load_table), a tile 9 rows per triangle (load_tile)
+MAX_SMEM_BYTES = 232_448
+EDGE_ROWS, TILE_ROWS = 6, 9
+# triangles of a tile, when the whole table does not fit: 36 KB, so that
+# several blocks share an SM
+TILE_TRIS = 1024
 # a ray's traversal stack in the BVH kernels (csrc/wide_bvh.cuh kMaxStack)
 MAX_WIDE_STACK = 256
 # K6's packet stack (max_stack + leaf_q entries, csrc/packet_trace2.cu
@@ -71,7 +77,16 @@ class Params(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "use_nee", "use_mis", "num_lights")] + [
         (name, ctypes.c_float) for name in (
-            "total_area", "inv_area", "inv_pi", "uniform_pdf")]
+            "total_area", "inv_area", "inv_pi", "uniform_pdf")] + [
+        (name, ctypes.c_int) for name in (
+            "use_env", "use_env_nee", "env_w", "env_h", "dist_w", "dist_h",
+            "use_tex", "rows", "tile")] + [
+        (name, ctypes.c_float) for name in (
+            "env_inv_patch", "env_pi_over_h", "env_two_pi_over_w",
+            "env_h_over_pi", "inv_two_pi", "pi")] + [
+        (name, ctypes.c_void_p) for name in (
+            "env_r", "env_g", "env_b", "env_cdf", "env_pdf", "tex_r", "tex_g",
+            "tex_b", "tex_off", "tex_w", "tex_h")]
 
 
 class WideParams(ctypes.Structure):
@@ -80,7 +95,8 @@ class WideParams(ctypes.Structure):
     _fields_ = [("nodes", ctypes.c_void_p), ("tris", ctypes.c_void_p)] + [
         (name, ctypes.c_int) for name in (
             "n_nodes", "n_leaf_rows", "max_stack")] + [
-        (name, ctypes.c_float) for name in ("t_min", "det_eps")]
+        (name, ctypes.c_float) for name in ("t_min", "det_eps")] + [
+        ("aux", ctypes.c_void_p)]
 
 
 class TwoLevelParams(ctypes.Structure):
@@ -94,18 +110,35 @@ class TwoLevelParams(ctypes.Structure):
         (name, ctypes.c_float) for name in ("t_min", "det_eps")]
 
 
+def table_plan(num_tris: int, rows: int):
+    """(tile, shared-memory bytes) of K1 or K2 over a brute-force table of
+    ``rows`` host rows: the whole table and its edges in shared memory
+    (tile 0) when they fit MAX_SMEM_BYTES, else tiles of TILE_TRIS
+    triangles (csrc/common.cuh tiled_closest)."""
+    whole = 4 * (rows + EDGE_ROWS) * num_tris
+    if whole <= MAX_SMEM_BYTES:
+        return 0, whole
+    return TILE_TRIS, 4 * TILE_ROWS * TILE_TRIS
+
+
 def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
                 npix: int, num_tris: int, tp: int, chunk_idx: int = 0,
-                lights=None) -> Params:
+                lights=None, env=None, env_dist=None, textures=None,
+                rows: int = 20) -> Params:
     """Launch parameters; every float is the float32 the twins use.
     ``lights`` (integrate/lights.py LightTable): next-event estimation
-    when ``cfg.use_nee``, MIS when ``cfg.use_mis`` too; neither without
-    lights."""
+    when ``cfg.use_nee``, MIS when ``cfg.use_mis`` too (also with the
+    environment's NEE); neither without lights or ``env_dist``. ``env``
+    (scene/textures.py TextureTable): the sky of a miss; ``env_dist``
+    (lights.env_distribution_for): its NEE under ``cfg.use_nee``;
+    ``textures``: the map_Kd pool; ``rows``: the brute-force table's host
+    rows. The tensors must stay alive while the kernel runs."""
     gh, gw = global_shape
     vec3 = ctypes.c_float * 3
     cam = cfg.camera
     use_nee = cfg.use_nee and lights is not None
-    return Params(
+    use_env_nee = cfg.use_nee and env is not None and env_dist is not None
+    params = Params(
         frame=frame, row0=row0, gw=gw, gh=gh, npix=npix,
         spp=cfg.spp_per_step, max_depth=cfg.max_depth,
         uniform=int(cfg.sampling == "uniform"), use_rr=int(cfg.use_rr),
@@ -117,12 +150,41 @@ def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
         cam_c=vec3(*map(f32, cam.center)), cam_r=vec3(*map(f32, cam.right)),
         cam_u=vec3(*map(f32, cam.up)), cam_o=vec3(*map(f32, cam.origin)),
         sky=vec3(*map(f32, cfg.sky_emission)),
-        use_nee=int(use_nee), use_mis=int(use_nee and cfg.use_mis),
-        num_lights=lights.num if use_nee else 0,
+        use_nee=int(use_nee), num_lights=lights.num if use_nee else 0,
         total_area=f32(lights.total_area) if use_nee else 1.0,
         inv_area=lights.inv_area if use_nee else 1.0, inv_pi=INV_PI,
         uniform_pdf=UNIFORM_PDF,
+        use_mis=int((use_nee or use_env_nee) and cfg.use_mis),
+        use_env_nee=int(use_env_nee), use_tex=int(textures is not None),
+        rows=rows, tile=table_plan(num_tris, rows)[0],
+        inv_two_pi=INV_TWO_PI, pi=f32(math.pi),
     )
+    if env is not None:
+        set_env(params, env)
+    if use_env_nee:
+        params.dist_w, params.dist_h = env_dist.width, env_dist.height
+        params.env_inv_patch = env_dist.inv_patch
+        params.env_pi_over_h = f32(math.pi / env_dist.height)
+        params.env_two_pi_over_w = f32(2 * math.pi / env_dist.width)
+        params.env_h_over_pi = f32(env_dist.height / math.pi)
+        params.env_cdf = env_dist.cdf.data_ptr()
+        params.env_pdf = env_dist.pdf_flat.data_ptr()
+    if textures is not None:
+        for k in ("r", "g", "b"):
+            setattr(params, f"tex_{k}", getattr(textures, f"t{k}").data_ptr())
+        params.tex_off = textures.off.data_ptr()
+        params.tex_w = textures.width.data_ptr()
+        params.tex_h = textures.height.data_ptr()
+    return params
+
+
+def set_env(params: Params, env) -> None:
+    """The environment map's pool and size in ``params`` (a TextureTable
+    on the kernels' device, its texture 0)."""
+    params.use_env = 1
+    params.env_h, params.env_w = env.shape0()
+    params.env_r, params.env_g, params.env_b = (
+        c.data_ptr() for c in (env.tr, env.tg, env.tb))
 
 
 def _nvcc() -> str:
@@ -199,12 +261,14 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call in this process)."""
     lib = ctypes.CDLL(str(build()))
     outs = [ctypes.c_void_p] * 5  # colr, colg, colb, segs, stream
+    # K2 and K1 take their shared memory after has_mirrors
     lib.sfvp_wave_render.argtypes = [
-        ctypes.c_void_p, ctypes.POINTER(Params), ctypes.c_int, *outs]
+        ctypes.c_void_p, ctypes.POINTER(Params), ctypes.c_int, ctypes.c_int,
+        *outs]
     # K1 and K5 take the light table after the scene
     lib.sfvp_regen_render.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(Params),
-        ctypes.c_int, *outs]
+        ctypes.c_int, ctypes.c_int, *outs]
     # K5 and K9 differ in their tree: the wide BVH or the two-level one
     for fn, tree in ((lib.sfvp_bvh_regen_render, WideParams),
                      (lib.sfvp_tlas_regen_render, TwoLevelParams)):
@@ -220,11 +284,15 @@ def library() -> ctypes.CDLL:
     lib.sfvp_packet_trace2.argtypes = [
         ctypes.POINTER(WideParams), ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    # P3 and P4: params, directions, n, mode, float16 map, out, stream
+    lib.sfvp_env_fetch.argtypes = [
+        ctypes.POINTER(Params), ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     for fn in (lib.sfvp_wave_render, lib.sfvp_regen_render,
                lib.sfvp_bvh_regen_render, lib.sfvp_tlas_regen_render,
                lib.sfvp_bvh_trace, lib.sfvp_bvh_occlusion,
                lib.sfvp_tlas_trace, lib.sfvp_tlas_occlusion,
-               lib.sfvp_packet_trace2):
+               lib.sfvp_packet_trace2, lib.sfvp_env_fetch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -235,7 +303,8 @@ def launch(fn_name: str, scene, params: Params, has_mirrors: bool,
     the scene's device; ``scene`` is the brute-force table tensor (K1, K2)
     or the WideParams / TwoLevelParams of a device tree (K5, K9). K1, K5
     and K9 take ``lights``, the (16, L) light table (``check_lights``) when
-    ``params.use_nee``. Allocates and returns (colr, colg, colb, segs)."""
+    ``params.use_nee``; K1 and K2 their table's shared memory
+    (``table_plan``). Allocates and returns (colr, colg, colb, segs)."""
     if isinstance(scene, (WideParams, TwoLevelParams)):
         device, scene_arg = scene.device, ctypes.byref(scene)
     else:
@@ -243,14 +312,17 @@ def launch(fn_name: str, scene, params: Params, has_mirrors: bool,
     args = [scene_arg]
     if fn_name != "sfvp_wave_render":
         args.append(lights.data_ptr() if params.use_nee else None)
+    args += [ctypes.byref(params), int(has_mirrors)]
+    if fn_name in ("sfvp_wave_render", "sfvp_regen_render"):
+        args.append(table_plan(params.num_tris, params.rows)[1])
     with torch.cuda.device(device):
         fn = getattr(library(), fn_name)
         outs = [torch.empty(n_out, dtype=torch.float32, device=device)
                 for _ in range(3)]
         segs = torch.empty(n_out, dtype=torch.int32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, ctypes.byref(params), int(has_mirrors),
-                 *(o.data_ptr() for o in outs), segs.data_ptr(), stream)
+        err = fn(*args, *(o.data_ptr() for o in outs), segs.data_ptr(),
+                 stream)
     check_launch(fn_name, err)
     return (*outs, segs)
 
@@ -273,17 +345,30 @@ def _launch_wave(fn_name: str, wp, rays, out, *extra):
     return out
 
 
+def _payload_planes(wp: "WideParams", rays) -> int:
+    """The payload's plane count, after the wave's size check (a wave too
+    large raises before anything is allocated)."""
+    if rays.shape[1] >= MAX_WAVE_RAYS:
+        raise ValueError(f"a wave holds fewer than {MAX_WAVE_RAYS} rays "
+                         f"(a C int), got {rays.shape[1]}")
+    return wp.n_payload
+
+
 def launch_bvh_trace(wp: "WideParams", rays):
-    """K3: (7, N) ray planes in, (19, N) payload planes out."""
+    """K3: (7, N) ray planes in, (19, N) payload planes out, or (22, N)
+    on a textured tree."""
     return _launch_wave("sfvp_bvh_trace", wp, rays, torch.empty(
-        (19, rays.shape[1]), dtype=torch.float32, device=rays.device))
+        (_payload_planes(wp, rays), rays.shape[1]), dtype=torch.float32,
+        device=rays.device))
 
 
 def launch_packet_trace2(wp: "WideParams", rays, leaf_q: int):
-    """K6: (7, N) ray planes in, (19, N) payload planes out, one block per
-    packet of 1024 rays with a leaf queue of ``leaf_q`` entries."""
+    """K6: (7, N) ray planes in, (19, N) payload planes out ((22, N) on a
+    textured tree), one block per packet of 1024 rays with a leaf queue of
+    ``leaf_q`` entries."""
     return _launch_wave("sfvp_packet_trace2", wp, rays, torch.empty(
-        (19, rays.shape[1]), dtype=torch.float32, device=rays.device), leaf_q)
+        (_payload_planes(wp, rays), rays.shape[1]), dtype=torch.float32,
+        device=rays.device), leaf_q)
 
 
 def launch_bvh_occlusion(wp: "WideParams", rays):
@@ -337,15 +422,24 @@ def _check_tables(what: str, max_stack: int, tables,
 
 def wide_params(dw, t_min: float, leaf_q: int = 0) -> WideParams:
     """WideParams of a device BVH (kernels/bvh_packet.py DeviceWide) on a
-    CUDA device, after ``_check_tables`` (for K6 with its ``leaf_q``).
-    ``.device`` rides along for the launch."""
-    _check_tables("wide BVH", dw.max_stack,
-                  (("nodes", dw.nodes), ("tris", dw.tris)), leaf_q)
+    CUDA device, after ``_check_tables`` (for K6 with its ``leaf_q``; a
+    textured tree's ``tris_aux`` rows with its leaf rows). ``.device`` and
+    the payload's plane count ``.n_payload`` ride along for the launch."""
+    tables = [("nodes", dw.nodes), ("tris", dw.tris)]
+    if dw.tris_aux is not None:
+        if dw.tris_aux.shape != dw.tris.shape:
+            raise ValueError(f"tris_aux {tuple(dw.tris_aux.shape)} beside "
+                             f"tris {tuple(dw.tris.shape)}")
+        tables.append(("tris_aux", dw.tris_aux))
+    _check_tables("wide BVH", dw.max_stack, tables, leaf_q)
     wp = WideParams(nodes=dw.nodes.data_ptr(), tris=dw.tris.data_ptr(),
                     n_nodes=dw.nodes.shape[0], n_leaf_rows=dw.tris.shape[0],
                     max_stack=dw.max_stack, t_min=f32(t_min),
-                    det_eps=_DET_EPS)
+                    det_eps=_DET_EPS,
+                    aux=None if dw.tris_aux is None
+                    else dw.tris_aux.data_ptr())
     wp.device = dw.nodes.device
+    wp.n_payload = dw.n_payload
     return wp
 
 
@@ -384,17 +478,52 @@ def check_lights(rows, device) -> None:
 
 
 def check_table(table, num_tris: int) -> None:
-    """What the kernels take: a contiguous float32 (20, Tp) scene table on
-    a CUDA device, with 0 < num_tris <= MAX_KERNEL_TRIS."""
+    """What K1 and K2 take: a contiguous float32 (20, Tp) scene table, or
+    (27, Tp) with the texture rows, on a CUDA device, with 0 < num_tris <=
+    Tp. A table past the shared memory a block may hold goes through it in
+    tiles (``table_plan``)."""
     if table.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take a CUDA tensor, got "
                          f"{table.device}")
     if table.dtype != torch.float32:
         raise ValueError(f"scene table must be float32, got {table.dtype}")
-    if table.dim() != 2 or table.shape[0] != 20 or not table.is_contiguous():
-        raise ValueError(f"scene table must be a contiguous (20, Tp) "
-                         f"tensor, got {tuple(table.shape)}")
-    if not 0 < num_tris <= min(MAX_KERNEL_TRIS, table.shape[1]):
-        raise ValueError(
-            f"num_tris={num_tris} outside 1..{MAX_KERNEL_TRIS} (the table "
-            "lives in 48 KB of shared memory)")
+    if (table.dim() != 2 or table.shape[0] not in (20, 27)
+            or not table.is_contiguous()):
+        raise ValueError(f"scene table must be a contiguous (20, Tp) or "
+                         f"(27, Tp) tensor, got {tuple(table.shape)}")
+    if not 0 < num_tris <= table.shape[1]:
+        raise ValueError(f"num_tris={num_tris} outside 1..{table.shape[1]}")
+
+
+def check_env(env, device) -> None:
+    """What the kernels take as an environment map or texture pool: its
+    float32 planes and int32 descriptors contiguous on ``device``."""
+    for name, t, dtype in (("tr", env.tr, torch.float32),
+                           ("tg", env.tg, torch.float32),
+                           ("tb", env.tb, torch.float32),
+                           ("off", env.off, torch.int32),
+                           ("width", env.width, torch.int32),
+                           ("height", env.height, torch.int32)):
+        if (t.device != torch.device(device) or t.dtype != dtype
+                or not t.is_contiguous()):
+            raise ValueError(f"texture table {name}: {t.dtype} on "
+                             f"{t.device}, the kernels take contiguous "
+                             f"{dtype} on {device}")
+
+
+def launch_env_fetch(params: Params, dirs, mode: int, half_map=None):
+    """P3 (mode 0) or a P4 variant (1 trig, 2 noread, 3 half, with the
+    (3, H*W) float16 ``half_map``): (3, N) direction planes in, (3, N)
+    planes out, on the current stream of the directions' device."""
+    n = dirs.shape[1]
+    if n >= MAX_WAVE_RAYS:
+        raise ValueError(f"a wave holds fewer than {MAX_WAVE_RAYS} rays")
+    out = torch.empty((3, n), dtype=torch.float32, device=dirs.device)
+    with torch.cuda.device(dirs.device):
+        stream = torch.cuda.current_stream(dirs.device).cuda_stream
+        err = library().sfvp_env_fetch(
+            ctypes.byref(params), dirs.data_ptr(), n, mode,
+            None if half_map is None else half_map.data_ptr(),
+            out.data_ptr(), stream)
+    check_launch("sfvp_env_fetch", err)
+    return out

@@ -49,6 +49,8 @@ NET_LAYERS = (
     ((3, 4),),
 )
 N_PAYLOAD = 19
+# a textured tree's payload adds texu, texv and texid+1 (sfvp_tpu's 22)
+N_PAYLOAD_TEX = 22
 # stack code of a TLAS leaf, -(INSTANCE_CODE_BASE + instance id + 1)
 # (sfvp_tpu/kernels/bvh_tlas.py _IB): below every leaf-row code, since
 # rows stay under build.MAX_WIDE_ROWS = 2**24
@@ -68,14 +70,24 @@ class Payload(NamedTuple):
     albedo: tuple    # Kd for diffuse, Ks for mirrors (see accel/wide.py)
     emission: tuple
     mtype: torch.Tensor  # f32: material type + roughness (accel/wide.py)
+    # map_Kd (a textured tree): the vt interpolated at the hit and the
+    # texture id (-1 untextured); None on untextured trees
+    texu: Optional[torch.Tensor] = None
+    texv: Optional[torch.Tensor] = None
+    texid: Optional[torch.Tensor] = None
 
 
 def payload_from_planes(out: torch.Tensor) -> Payload:
-    """The Payload view of the (19, N) planes the trace writes."""
+    """The Payload view of the (19, N) planes the trace writes, or of the
+    (22, N) planes of a textured tree."""
     p = tuple(out)
+    tex = {}
+    if len(p) == N_PAYLOAD_TEX:
+        tex = dict(texu=p[19], texv=p[20],
+                   texid=p[21].to(torch.int32) - 1)
     return Payload(t=p[0], u=p[1], v=p[2], p0=p[3:6], p1=p[6:9],
                    p2=p[9:12], albedo=p[12:15], emission=p[15:18],
-                   mtype=p[18])
+                   mtype=p[18], **tex)
 
 
 class DeviceWide(NamedTuple):
@@ -84,32 +96,37 @@ class DeviceWide(NamedTuple):
     nodes: torch.Tensor  # (Mi, 128) f32
     tris: torch.Tensor   # (Ml, 128) f32
     max_stack: int
+    # a textured tree's vt + texid+1 rows beside ``tris`` (accel/wide.py
+    # uv_array), None otherwise
+    tris_aux: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
         return self.nodes.device
 
+    @property
+    def n_payload(self) -> int:
+        return N_PAYLOAD if self.tris_aux is None else N_PAYLOAD_TEX
+
 
 def device_wide(wide: WideBVH, device) -> DeviceWide:
-    """Copy a host WideBVH's tables to ``device``. Child refs are float32
-    in the rows, so each table must have fewer than 2**24 rows. A textured
-    tree (``tris_aux``, the payload's texture planes) raises until
-    ROADMAP.md A.13."""
-    if wide.tris_aux is not None:
-        raise NotImplementedError(
-            "textured wide BVHs (the tris_aux planes) are not ported to "
-            "sfvp_tpu_torch yet (ROADMAP.md A.13)")
+    """Copy a host WideBVH's tables (and a textured tree's ``tris_aux``)
+    to ``device``. Child refs are float32 in the rows, so each table must
+    have fewer than 2**24 rows."""
     for name, a in (("nodes", wide.nodes), ("tris", wide.tris)):
         if a.shape[0] >= build.MAX_WIDE_ROWS:
             raise ValueError(f"wide BVH {name} has {a.shape[0]} rows; refs "
                              f"are float32, exact below "
                              f"{build.MAX_WIDE_ROWS}")
+
+    def table(a):
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=device).contiguous()
+
     return DeviceWide(
-        nodes=torch.as_tensor(wide.nodes, dtype=torch.float32,
-                              device=device).contiguous(),
-        tris=torch.as_tensor(wide.tris, dtype=torch.float32,
-                             device=device).contiguous(),
-        max_stack=int(wide.max_stack))
+        nodes=table(wide.nodes), tris=table(wide.tris),
+        max_stack=int(wide.max_stack),
+        tris_aux=None if wide.tris_aux is None else table(wide.tris_aux))
 
 
 def _slot_tests(s, ray, t_min, bt):
@@ -304,19 +321,29 @@ def packet_trace_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
             _push(stack, sp, ni, _node_children(
                 dw.nodes, code[~leaf] - 1, ray.take(ni), bt[ni], t_min))
         _count(counts, ni, li)
-    return payload_planes(dw.tris, bt, bu, bv, brow, bslot)
+    return payload_planes(dw.tris, bt, bu, bv, brow, bslot, dw.tris_aux)
 
 
-def payload_planes(tris, bt, bu, bv, brow, bslot) -> torch.Tensor:
+def payload_planes(tris, bt, bu, bv, brow, bslot, aux=None) -> torch.Tensor:
     """The (19, N) payload planes of rays whose best hit is (t, u, v) on
     slot ``bslot`` of leaf row ``brow`` (-1: a miss, every plane but t
-    zero)."""
-    out = torch.zeros((N_PAYLOAD, bt.shape[0]), dtype=torch.float32,
+    zero). With a textured tree's ``aux`` rows, 22 planes: then texu, texv
+    (the slot's per-corner vt interpolated with the hit's barycentrics,
+    as sfvp_tpu's K3 does, bvh_packet.py:326-334) and texid+1."""
+    n_out = N_PAYLOAD if aux is None else N_PAYLOAD_TEX
+    out = torch.zeros((n_out, bt.shape[0]), dtype=torch.float32,
                       device=bt.device)
     out[0], out[1], out[2] = bt, bu, bv
     hit = torch.nonzero(brow >= 0).squeeze(1)
     lanes = 16 * bslot[hit][:, None] + torch.arange(16, device=bt.device)
-    out[3:, hit] = torch.gather(tris[brow[hit]], 1, lanes).T
+    out[3:N_PAYLOAD, hit] = torch.gather(tris[brow[hit]], 1, lanes).T
+    if aux is not None:
+        a = torch.gather(aux[brow[hit]], 1, lanes[:, :7]).T
+        u, v = bu[hit], bv[hit]
+        wb = 1.0 - u - v
+        out[19, hit] = a[0] * wb + a[2] * u + a[4] * v
+        out[20, hit] = a[1] * wb + a[3] * u + a[5] * v
+        out[21, hit] = a[6]
     return out
 
 

@@ -214,7 +214,7 @@ def packet_trace2_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
         return x.reshape(-1)[:n]
 
     return payload_planes(dw.tris, flat(bt), flat(bu), flat(bv), flat(brow),
-                          flat(bslot))
+                          flat(bslot), dw.tris_aux)
 
 
 def packet_trace2(dw: DeviceWide, t_min: float, rays: torch.Tensor,

@@ -72,11 +72,11 @@ def device_two_level(tl, device) -> DeviceTwoLevel:
     sfvp_tpu's: the same arrays) to ``device``. Child refs are float32 in
     the rows, so each table must have fewer than 2**24 rows, which also
     keeps every leaf-row code above the instance codes. Textured BLASes
-    (``tris_aux``) come with ROADMAP.md A.13."""
+    (``tris_aux``) come with ROADMAP.md A.13b."""
     if tl.tris_aux is not None:
         raise NotImplementedError(
             "textured instances (the two-level tris_aux planes) are not "
-            "ported to sfvp_tpu_torch yet (ROADMAP.md A.13)")
+            "ported to sfvp_tpu_torch yet (ROADMAP.md A.13b)")
 
     def table(name):
         a = getattr(tl, name)

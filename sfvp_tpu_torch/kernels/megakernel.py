@@ -27,24 +27,34 @@ from ..integrate.wavefront import (
     sum_chunks,
     trace_wave,
 )
-from ..scene.buffers import FIELDS, SceneBuffers
+from ..scene.buffers import FIELDS, UV_FIELDS, SceneBuffers
 from . import build
 
 
 def scene_table(scene: SceneBuffers) -> torch.Tensor:
     """(20, Tp) f32 triangle table: rows 0-8 vertex coords, 9-11 Kd,
-    12-14 Ke, 15-17 Ks, 18 material type (as f32), 19 roughness; the layout
-    of sfvp_tpu's scene_table for untextured scenes."""
-    return torch.stack(
-        [getattr(scene, k).to(torch.float32) for k in FIELDS], dim=0
-    ).contiguous()
+    12-14 Ke, 15-17 Ks, 18 material type (as f32), 19 roughness; textured
+    scenes append rows 20-26: u0 v0 u1 v1 u2 v2 texid+1 (0 = untextured).
+    The layout of sfvp_tpu's scene_table (megakernel.py:82-105)."""
+    cols = [getattr(scene, k).to(torch.float32) for k in FIELDS]
+    if scene.has_textures:
+        cols += [getattr(scene, k) for k in UV_FIELDS]
+        cols.append(scene.tex.to(torch.float32) + 1.0)
+    return torch.stack(cols, dim=0).contiguous()
 
 
-def buffers_from_table(table: torch.Tensor, num_tris: int) -> SceneBuffers:
+def buffers_from_table(table: torch.Tensor, num_tris: int,
+                       textures=None) -> SceneBuffers:
     """SceneBuffers over the first ``num_tris`` columns of a scene table
-    (the inverse of ``scene_table``), for the plain twins."""
+    (the inverse of ``scene_table``, with the scene's ``textures`` for a
+    textured table), for the plain twins."""
     cols = {k: table[i, :num_tris] for i, k in enumerate(FIELDS)}
     cols["mtype"] = cols["mtype"].round().to(torch.int32)
+    if textures is not None:
+        cols.update({k: table[20 + i, :num_tris]
+                     for i, k in enumerate(UV_FIELDS)})
+        cols["tex"] = table[26, :num_tris].round().to(torch.int32) - 1
+        cols["textures"] = textures
     return SceneBuffers(**cols, num_tris=num_tris)
 
 
@@ -78,6 +88,8 @@ def wave_render(table, frame: int, chunk_idx: int, row0: int, *,
             table, frame, chunk_idx, row0, cfg=cfg, num_tris=num_tris,
             global_shape=global_shape, npix=npix, has_mirrors=has_mirrors)
     build.check_table(table, num_tris)
+    if table.shape[0] != 20:
+        raise ValueError("K2 takes an untextured (20, Tp) table")
     params = build.make_params(
         cfg, frame=frame, row0=row0, global_shape=global_shape, npix=npix,
         num_tris=num_tris, tp=table.shape[1], chunk_idx=chunk_idx)
@@ -93,8 +105,14 @@ wave_render.launches = 0
 def make_wave_render_step(cfg: RenderConfig, scene: SceneBuffers,
                           global_shape: Optional[tuple] = None):
     """Progressive render step driven by K2: ``render_step(state, row0=0)
-    -> state``, with the semantics of integrate.make_render_step."""
+    -> state``, with the semantics of integrate.make_render_step. K2 has
+    neither environment maps nor textures (dispatch takes the eager loop
+    for them, as sfvp_tpu's does, dispatch.py:245-256)."""
     require_slice(cfg, scene)
+    if scene.env is not None or scene.has_textures:
+        raise ValueError("K2 renders neither environment maps nor textures; "
+                         "dispatch.select_render_step takes the eager "
+                         "wavefront loop for them")
     gshape = global_shape if global_shape is not None else (cfg.height,
                                                             cfg.width)
     table = scene_table(scene)

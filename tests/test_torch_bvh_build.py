@@ -183,11 +183,17 @@ def test_unknown_builder_raises():
     dict(stream_tris=False), dict(stream_tris=True, sort_bounce_rays=True)])
 def test_config_hash_ignores_sort_knobs(knobs):
     """The restored sort knobs, and the stream knob, are execution knobs: the hash equals sfvp_tpu's for every setting, and
-    equals the hash without them. The port sorts only when asked (it loses
-    on the H100, config.py)."""
+    equals the hash without them. By default (None) the port sorts where
+    K6 traces and nowhere else (it loses on the H100 on K3, config.py);
+    an explicit setting wins."""
+    from sfvp_tpu_torch.integrate.wavefront import sort_rays
+
     kw = dict(width=64, height=32, sampling="cosine", use_rr=True)
     a = J.RenderConfig(**kw, **knobs).config_hash()
     b = T.RenderConfig(**kw, **knobs).config_hash()
     assert a == b == T.RenderConfig(**kw).config_hash()
-    assert T.RenderConfig(**knobs).sort_bounce_rays == knobs.get(
-        "sort_bounce_rays", False)
+    cfg = T.RenderConfig(**knobs)
+    assert cfg.sort_bounce_rays == knobs.get("sort_bounce_rays")
+    for stream in (False, True):
+        assert sort_rays(cfg, stream) == knobs.get("sort_bounce_rays",
+                                                   stream)

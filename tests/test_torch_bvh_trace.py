@@ -301,15 +301,17 @@ def test_occlusion_raises_naming_nee():
 
 def test_wide_params_layout():
     """The ctypes mirror of sfvp::Wide (csrc/wide_bvh.cuh): two pointers,
-    three ints, two floats."""
+    three ints, two floats, then the pointer to a textured tree's aux rows
+    from an 8-byte boundary."""
     import ctypes
 
     assert [f for f, _ in build.WideParams._fields_] == [
         "nodes", "tris", "n_nodes", "n_leaf_rows", "max_stack", "t_min",
-        "det_eps"]
+        "det_eps", "aux"]
     assert build.WideParams.n_nodes.offset == 16
     assert build.WideParams.t_min.offset == 28
-    assert ctypes.sizeof(build.WideParams) == 40
+    assert build.WideParams.aux.offset == 40
+    assert ctypes.sizeof(build.WideParams) == 48
 
 
 @pytest.mark.cuda

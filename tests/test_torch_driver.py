@@ -131,8 +131,11 @@ def test_cli_writes_png(tmp_path):
 @pytest.mark.parametrize("flags", [
     # --nee and --mis render now (tests/test_torch_nee.py); with an
     # unported feature beside them the CLI still raises
-    ["--lens-radius", "0.1", "--nee"], ["--env-map", "sky.hdr", "--mis"],
-    ["--env-map", "sky.hdr"], ["--lens-radius", "0.1"],
+    ["--lens-radius", "0.1", "--nee"],
+    # --env-map renders now (tests/test_torch_envmap.py); beside an
+    # unported feature the CLI still raises, before it reads the map
+    ["--env-map", "sky.hdr", "--lens-radius", "0.1", "--mis"],
+    ["--lens-radius", "0.2", "--env-map", "sky.hdr"], ["--lens-radius", "0.1"],
     ["--focus-dist", "3.0"], ["--dist"],
     # --adaptive renders now (tests/test_torch_adaptive.py); with an
     # unported feature beside it the CLI still raises

@@ -15,7 +15,7 @@ FORBIDDEN = {"jax", "jaxlib", "sfvp_tpu"}
 
 def _port_files():
     return sorted((ROOT / "sfvp_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -149,15 +149,22 @@ def test_non_cpu_non_cuda_tensor_is_refused(wrapper):
 def test_kernel_params_layout():
     """The ctypes mirror of sfvp::Params (csrc/common.cuh): 14 ints,
     7 floats and 5 float[3], then next-event estimation's 3 ints and 4
-    floats, 4-byte fields without padding."""
+    floats, then the environment's and the textures' 9 ints and 6 floats,
+    4-byte fields without padding, and their 11 pointers from an 8-byte
+    boundary."""
     import ctypes
 
-    assert len(build.Params._fields_) == 26 + 7
+    assert len(build.Params._fields_) == 26 + 7 + 15 + 11
     assert build.Params.t_min.offset == 4 * 14
     assert build.Params.cam_c.offset == 4 * (14 + 7)
     assert build.Params.use_nee.offset == 4 * (14 + 7 + 15)
     assert build.Params.total_area.offset == 4 * (14 + 7 + 15 + 3)
-    assert ctypes.sizeof(build.Params) == 4 * (14 + 7 + 15 + 3 + 4)
+    assert build.Params.use_env.offset == 4 * (14 + 7 + 15 + 3 + 4)
+    assert build.Params.env_inv_patch.offset == 4 * (14 + 7 + 15 + 3 + 4 + 9)
+    assert build.Params.env_r.offset == 4 * (14 + 7 + 15 + 3 + 4 + 9 + 6)
+    assert build.Params.env_r.offset % 8 == 0
+    assert ctypes.sizeof(build.Params) == (
+        4 * (14 + 7 + 15 + 3 + 4 + 9 + 6) + 8 * 11)
 
 
 @pytest.mark.cuda
@@ -171,8 +178,7 @@ def test_cuda_kernel_matches_twin(kernel, case):
     _, tb = both_buffers(kw.pop("scene"))
     kw.update(width=64, height=48, spp_per_step=4, max_depth=8)
     cpu = _run(MAKERS[kernel], kw, tb, 48, 64)
-    gpu_tb = type(tb)(*(getattr(tb, k).cuda() for k in tb._fields[:-1]),
-                      num_tris=tb.num_tris)
+    gpu_tb = T.scene.to_device(tb, "cuda")
     gpu = _run(MAKERS[kernel], kw, gpu_tb, 48, 64)
     assert_close(gpu.accum.cpu().numpy(), cpu.accum.numpy(),
                  f"{kernel} CUDA vs twin ({case})", rel=1e-4, max_abs=0.1)

@@ -344,8 +344,7 @@ def test_cuda_k5_matches_twin(name, kw):
         pytest.skip("needs a CUDA device; chip_smoke.py runs this on the card")
     _, tb, _, tw, view = scene(name)
     _, cfg = configs(dict(kw, width=64, height=48, max_depth=8), view)
-    gpu_tb = type(tb)(*(getattr(tb, k).cuda() for k in tb._fields[:-1]),
-                      num_tris=tb.num_tris)
+    gpu_tb = T.scene.to_device(tb, "cuda")
     cpu = make_bvh_regen_render_step(cfg, tb, device_wide(tw, "cpu"))(
         T.init_state(48, 64, "cpu"))
     gpu = make_bvh_regen_render_step(cfg, gpu_tb, device_wide(tw, "cuda"))(

@@ -409,8 +409,7 @@ def test_cuda_k1_nee_matches_twin(case):
     _, tb, kw = _k1_case(case)
     kw.update(width=64, height=48, max_depth=8)
     cfg = T.RenderConfig(**kw)
-    gpu_tb = type(tb)(*(getattr(tb, k).cuda() for k in tb._fields[:-1]),
-                      num_tris=tb.num_tris)
+    gpu_tb = T.scene.to_device(tb, "cuda")
     cpu = make_regen_render_step(cfg, tb)(T.init_state(48, 64, "cpu"))
     gpu = make_regen_render_step(cfg, gpu_tb)(T.init_state(48, 64, "cuda"))
     assert_close(gpu.accum.cpu().numpy(), cpu.accum.numpy(),

@@ -258,12 +258,24 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(bad):
 
 
 def test_textured_tree_raises_naming_a13():
-    w = WideBVH(nodes=np.zeros((1, 128), np.float32),
-                tris=np.zeros((1, 128), np.float32),
+    """A textured single-level tree goes to the device with its aux rows
+    now (K3 and K6 write the texture planes, tests/test_torch_textures.py);
+    the textured two-level tree, a route this slice leaves out, still
+    raises, naming ROADMAP.md A.13b."""
+    from sfvp_tpu_torch.accel.tlas import TwoLevelBVH
+    from sfvp_tpu_torch.kernels.bvh_tlas import device_two_level
+
+    rows = np.zeros((1, 128), np.float32)
+    w = WideBVH(nodes=rows, tris=rows,
                 prim_rows=np.zeros((1, 8), np.int32), max_stack=10,
-                tris_aux=np.zeros((1, 128), np.float32))
-    with pytest.raises(NotImplementedError, match="A.13"):
-        device_wide(w, "cpu")
+                tris_aux=np.ones((1, 128), np.float32))
+    dw = device_wide(w, "cpu")
+    assert dw.n_payload == 22 and torch.equal(dw.tris_aux,
+                                              torch.ones((1, 128)))
+    tl = TwoLevelBVH(nodes=rows, tris=rows, inst=rows, max_stack=10,
+                     num_instances=1, tris_aux=rows)
+    with pytest.raises(NotImplementedError, match="A.13b"):
+        device_two_level(tl, "cpu")
 
 
 def _loop_configs(**kw):
@@ -413,3 +425,54 @@ def test_cuda_wrapper_counts_launches():
     packet_trace2(device_wide(s["tw"], "cuda"), T_MIN, rays)
     torch.cuda.synchronize()
     assert packet_trace2.launches == before + 1
+
+
+def test_streamed_route_sorts_bounce_rays_as_jax(monkeypatch):
+    """On the streamed route both packages sort the bounce rays by
+    default, so K6's 1024-ray packets hold the same rays: at a 32x32, 2-spp,
+    depth-3 wavefront step over K6 (sfvp_tpu's in interpret mode), every
+    bounce wave reaches the payload trace in the same order (the same
+    active mask bitwise, each slot's ray within float rounding), and the
+    images agree."""
+    s = scene("sphere")
+    base = dict(width=32, height=32, spp_per_step=2, max_depth=3,
+                traversal="bvh", megakernel_regen=False, sampling="cosine")
+    jcfg, tcfg = (mod.RenderConfig(**base, sky_emission=(0.8, 0.85, 1.0),
+                                   camera=mod.CameraConfig.look_at(
+                                       **SPHERE_VIEW)) for mod in (J, T))
+    assert jcfg.sort_bounce_rays and tcfg.sort_bounce_rays is None
+    jrec, trec = [], []
+    jk6 = j_k6(s["jw"], t_min=jcfg.t_min, interpret=True, stream_tris=True)
+
+    def jtrace(o, d, t_max, active=None):
+        jax.debug.callback(
+            lambda *a: jrec.append([np.asarray(x) for x in a]), *o, active,
+            ordered=True)
+        return jk6(o, d, t_max, active=active)
+
+    want = jax.jit(j_make(jcfg, s["jb"], trace_payload_fn=jtrace))(
+        J.init_state(32, 32))
+    make = bvh_packet2.make_packet_trace2
+
+    def spy(dw, t_min, **kw):
+        trace = make(dw, t_min, **kw)
+
+        def traced(o, d, t_max, active=None):
+            trec.append([c.numpy().copy() for c in (*o, active)])
+            return trace(o, d, t_max, active=active)
+
+        return traced
+
+    monkeypatch.setattr(bvh_packet2, "make_packet_trace2", spy)
+    got = select_render_step(dataclasses.replace(tcfg, stream_tris=True),
+                             s["tb"], wide=s["tw"])(T.init_state(32, 32, "cpu"))
+    assert len(trec) == len(jrec) == 2 * 3
+    for k, (a, b) in enumerate(zip(trec, jrec)):
+        np.testing.assert_array_equal(a[3], b[3], err_msg=f"wave {k}")
+        act = a[3]
+        for c in range(3):
+            np.testing.assert_allclose(a[c][act], b[c][act], rtol=0,
+                                       atol=1e-4, err_msg=f"wave {k}")
+    assert not all(np.array_equal(trec[1][c], trec[0][c]) for c in range(3))
+    assert_close(got.accum.numpy(), np.asarray(want.accum),
+                 "sorted wavefront over K6 vs jax")

@@ -117,7 +117,9 @@ def test_scene_table_equal(scenes):
 
 
 def test_upload_refuses_env_map(scenes):
+    """Environment maps upload now (tests/test_torch_envmap.py); a map
+    that cannot be read is refused, never replaced by the constant sky."""
     _, ts = scenes
     env_scene = dataclasses.replace(ts, env_map="sky.hdr")
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(FileNotFoundError, match="sky.hdr"):
         T.upload(env_scene, device="cpu")

@@ -476,3 +476,31 @@ def test_cuda_k9_matches_twin(case):
         T.init_state(48, 64, "cuda"))
     assert_close(gpu.accum.cpu().numpy(), cpu.accum.numpy(),
                  f"K9 CUDA vs twin ({case})", rel=1e-5, max_abs=1e-4)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["k9", "k7_k8"])
+@pytest.mark.parametrize("image", ["env", "texture"])
+def test_instanced_env_or_textures_raise_naming_a13b(image, fused, tmp_path):
+    """Environment maps and map_Kd textures on an instanced scene: its
+    routes, K9 and the wavefront loop over K7 + K8, refuse them, naming
+    ROADMAP.md A.13b, before anything is traced."""
+    from sfvp_tpu.render.png import encode_png
+
+    png = tmp_path / "img.png"
+    png.write_bytes(encode_png(np.full((4, 8, 3), 128, np.uint8)))
+    mesh = _mesh(TScene, 6, seed=1)
+    if image == "env":
+        mesh = dataclasses.replace(mesh, env_map=str(png))
+    else:
+        mesh = dataclasses.replace(
+            mesh, face_uv=np.zeros((6, 3, 2), np.float32),
+            face_tex=np.zeros(6, np.int32), texture_paths=[str(png)])
+    insts = random_instances(Instance, 3, mesh, mesh)
+    flat = T.upload(flatten_instances(insts), device="cpu")
+    assert (flat.env is not None) == (image == "env")
+    assert flat.has_textures == (image == "texture")
+    cfg = T.RenderConfig(width=8, height=8, spp_per_step=1, max_depth=2,
+                         use_nee=True, megakernel_regen=fused)
+    # the refusal comes before the two-level tree is read
+    with pytest.raises(NotImplementedError, match="A.13b"):
+        select_instanced_render_step(cfg, flat, None)
