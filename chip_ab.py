@@ -5,13 +5,19 @@
 A_DIR and B_DIR are roots of checkouts of this repository (each with its
 chip_smoke.py and sfvp_tpu_torch/; each builds its kernels in its own
 build/). The script runs them in the order A B B A (N rounds of it), each
-run a fresh process that sets up the city of ``--scene city --scene-tris
-100000`` and the lit 220k instanced field through that checkout's
-chip_smoke.py, then times, by CUDA events, 3 readings of 5 steps each:
+run a fresh process that sets up the Cornell Box, the 100k sphere of
+``--scene sphere --scene-tris 100000``, the city of ``--scene city
+--scene-tris 100000`` and the lit 220k instanced field through that
+checkout's chip_smoke.py, then times, by CUDA events, 3 readings of 5
+steps each:
 
-  K5city  K5's step on the city at 1024x1024, 8 spp, depth 8, cosine + RR
-          + NEE + MIS (chip_smoke.py phase 16's shape);
-  K9lit   K9's step on the lit field, the same estimator (phase 20's).
+  K1cornell  K1's step on the Cornell Box at 1024x1024, 32 spp, depth 8,
+             parity (chip_smoke.py phase 6's shape);
+  K5sphere   K5's step on the sphere at 1024x1024, 8 spp, depth 8,
+             cosine + RR (phase 10's);
+  K5city     K5's step on the city, the same shape with NEE + MIS (phase
+             16's);
+  K9lit      K9's step on the lit field, the same estimator (phase 20's).
 
 One line per run, ``AB <label> K5city=<ms> K9lit=<ms> ...``, then the
 card's name and power limit. It needs one card; compare two versions only
@@ -32,19 +38,33 @@ def child(root: str) -> None:
     sys.path[0] = root
     os.chdir(root)
     import chip_smoke as C
+    from sfvp_tpu_torch import RenderConfig
+    from sfvp_tpu_torch.kernels.megakernel import scene_table
     from sfvp_tpu_torch.kernels.megakernel_bvh import (
         bvh_regen_render, tlas_regen_render)
+    from sfvp_tpu_torch.kernels.megakernel_regen import regen_render
 
     with open(os.devnull, "w") as quiet:
         stdout, sys.stdout = sys.stdout, quiet
         try:
+            cornell = C.cornell_buffers(C.DEVICE)
+            sphere = C.scene_setup("sphere", C.SPHERE_TRIS)
             city = C.scene_setup("city", C.CITY_TRIS, **C.NEE_FLAGS)
             _, lit = C.field_setup()
         finally:
             sys.stdout = stdout
+    table = scene_table(cornell)
+    main = RenderConfig(width=C.MAIN_W, height=C.MAIN_H,
+                        spp_per_step=C.MAIN_SPP, max_depth=C.MAIN_DEPTH)
     shape = dict(global_shape=(C.BVH_H, C.BVH_W), npix=C.BVH_W * C.BVH_H,
                  has_mirrors=False)
     runs = (
+        ("K1cornell", lambda: regen_render(
+            table, 1, 0, cfg=main, num_tris=cornell.num_tris,
+            global_shape=(C.MAIN_H, C.MAIN_W), npix=C.MAIN_W * C.MAIN_H,
+            has_mirrors=False)),
+        ("K5sphere", lambda: bvh_regen_render(
+            sphere["dw"], 1, 0, cfg=sphere["cfg"], **shape)),
         ("K5city", lambda: bvh_regen_render(
             city["dw"], 1, 0, cfg=city["cfg"], lights=city["lights"],
             **shape)),

@@ -5,7 +5,7 @@
 Phases, each of which raises (exit code 1, no result line) on failure:
   1. device   a CUDA device of compute capability 9.0 (Hopper), and the
               card's name and power limit from nvidia-smi;
-  2. build    nvcc builds the kernels K1-K9, P3 and P4 from
+  2. build    nvcc builds the kernels K1-K9 and P2-P5 from
               sfvp_tpu_torch/csrc/, one nvcc per source in parallel,
               while the host builds the wide BVHs of the 100k sphere
               and the city (phases 7-16);
@@ -44,10 +44,13 @@ The large-scene path (slice 2: the wide BVH, kernels K3 and K5), over the
  10. bvh times   K5 per step and K3 per launch (first-bounce and a later
                  bounce wave) at the main path's shape, CUDA events, each
                  beside its twin, and K5 held to its twin there;
- 11. bvh 500k    K5 against its twin on the 500k sphere's LBVH tree at
+ 11. bvh 500k    K5 against its twin on the 500k sphere's tree at
                  256x256, 1 spp, depth 8, cosine + RR, and K5's time per
                  pixel on the 500k and 100k trees at 512x512, 8 spp, and
-                 per segment at 256x256, 1 spp;
+                 per segment at 256x256, 1 spp; the 500k tree's set-up
+                 seconds on the native SAH builder (since slice 7; the
+                 NumPy LBVH before), its bytes past the streaming
+                 threshold and its max_stack within K6's packet stack;
  12. ray sort    the wavefront step over K3 at the main path's shape with
                  the per-bounce ray sort on and off: times, same image.
 
@@ -207,6 +210,49 @@ its sun map and its two 2048 x 1024 maps:
                  P3's bound the larger of (24 n + 12 H W) bytes over 3.35
                  TB/s and n x ENV_FETCH_OPS over 67 TFLOP/s.
 
+Materials and the thin lens (slice 7: GGX glossy and the smooth
+dielectric in K1, K5 and K9 and the loop over K3 + K4, the thin lens in
+K1 and K5; compiled only into the kernels of scenes that have them) and
+the leaf-row probes P2 and P5:
+ 29. mat twins   K5 against its twin at 256x256, 4 spp on bench.py's
+                 glossy city (city_mesh(96, 9, glossy_ground=True,
+                 emissive_frac=0.03), its camera and sky, cosine + RR +
+                 NEE); K1 at 256x256, 8 spp and K5 at 128x128, 4 spp on
+                 the Cornell Box with a glass short box (an MTL the script
+                 writes, Ni 1.5 illum 7) through a thin lens focused on its
+                 back wall, parity and cosine + RR + NEE + MIS; K1 at
+                 128x128, 4 spp on spheres of 1,012 (opt-in shared
+                 memory) and 2,964 (tiled) triangles of all four
+                 materials through the lens; K9 at 128x128, 1 spp on the
+                 lit 220k field with GGX and glass balls;
+ 30. mat main    the CLI --obj glass.obj --lens-radius 0.05 --focus-dist
+                 <back wall> at 1024x1024, 32 spp, depth 8, 2 steps (K1
+                 only); the Renderer on the glossy city at bench.py's
+                 city_648lights shape (1024x1024, 4 spp) and its
+                 city_sorted_2048 shape (emissive_frac 0.06, 2048x2048, 4
+                 spp), 2 steps each (K5 only); on the glossy field (K9
+                 only); the glossy city with megakernel_regen=False at
+                 256x256 (K3 and K4 only), its image equal to K5's step;
+ 31. mat times   K5 per glossy-city step at both shapes and K1 per glass +
+                 lens Cornell step, each held to its twin at that shape; K9
+                 per glossy lit-field step at 1024x1024, 8 spp, that
+                 step held to the loop over K7 + K8 at the same shape and
+                 seed, and K9 to its twin at 512x512, 2 spp; CUDA events,
+                 each beside its bound (the GGX, dielectric and lens work
+                 counted from the twins' material hits, GGX_* and
+                 DIEL_OPS; K9's from its twin's counts, scaled 16x);
+ 32. probes      P2's five modes (base, extract, smemdma, smemload,
+                 dmaonly) over an (8192, 128) table bitwise against their
+                 twins over 2,000 iterations (base and dmaonly over 1, 5
+                 and 15, where their accumulator is finite; it overflows
+                 past 17) and timed over 20,000 queued
+                 behind a sleeping kernel (ns per iteration, each less
+                 base); P5 against its twin and the probe's exact want.
+The native builder (slice 7): the 100k sphere's, the city's and the 500k
+sphere's wide BVHs are built by the package's C++ SAH builder, which the
+build phase compiles with g++ beside the kernels (phase 11 prints the
+500k tree's set-up seconds).
+
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -335,6 +381,42 @@ ENV_FETCH_OPS, ENV_TRIG_OPS, ENV_NOREAD_OPS = 90, 45, 75
 # they are timed queued behind torch.cuda._sleep of this many cycles
 # (~50 ms at the H100's clock; queued_ms)
 QUEUE_SLEEP_CYCLES = 100_000_000
+
+# slice 7, materials and the thin lens: the reference suite's glossy city
+# (bench.py's city_mesh(n_buildings=96, subdiv=9, glossy_ground=True), its
+# camera and sky, cosine + RR + NEE, bench.py:136-195) at the
+# city_648lights shape (emissive_frac 0.03, MAT_W^2, MAT_SPP spp) and the
+# city_sorted_2048 shape (0.06, CITY2048_W^2); the loop over K3 + K4 at
+# MAT_LOOP_SIZE^2; the Cornell Box with a glass short box (an MTL the
+# script writes: Ni 1.5, illum 7) through a thin lens focused on the back
+# wall at the main path's shape; the glossy field's K9 twin at
+# FIELD_MAT_TWIN^2 with FIELD_MAT_TWIN_SPP spp
+CITY_VIEW = dict(origin=(13.0, 9.0, 13.0), target=(0.0, 0.8, 0.0),
+                 fov_y_deg=55.0)
+GLOSSY_CITY = dict(n_buildings=96, subdiv=9, glossy_ground=True)
+CITY648_FRAC, CITY2048_FRAC = 0.03, 0.06
+MAT_W, MAT_SPP, CITY2048_W, MAT_LOOP_SIZE = 1024, 4, 2048, 256
+MAT_FLAGS = dict(sampling="cosine", use_rr=True, use_nee=True)
+GLASS_LENS_RADIUS = 0.05
+GLASS_MTL = "Kd 0 0 0\nKs 0 0 0\nNi 1.5\nillum 7\n"
+FIELD_MAT_TWIN, FIELD_MAT_TWIN_SPP = 512, 2
+# FP32 operations, counted from csrc/common.cuh and rounded down: the GGX
+# frame of a hit (ggx_frame: the flipped normal, its basis, the view
+# direction in it, alpha and Lambda), a GGX light evaluation (ggx_eval: the
+# half vector, D, G2, Fresnel, f_r, the VNDF pdf), a GGX bounce
+# (ggx_bounce: the VNDF sample with its sin and cos, the reflection to
+# world space, G2 / G1, the pdf), a dielectric bounce (dielectric_dir) and
+# the thin lens of a camera ray (camera_path<DOF>)
+GGX_FRAME_OPS, GGX_EVAL_OPS, GGX_BOUNCE_OPS = 70, 110, 170
+DIEL_OPS, LENS_OPS = 45, 40
+# P2 and P5, the leaf-row probes: P2 over an (P2_ROWS, 128) table (4 MiB,
+# the TPU probe's default), held to its twin over P2_CHECK_ITERS
+# iterations, timed over P2_ITERS (queued behind a sleeping kernel, as
+# P3); P5 on its (16, 128) table. base's and dmaonly's accumulator grows
+# ~129x an iteration and is inf past 17, where any chain agrees: they are
+# held to their twins at P2_FINITE_ITERS, where it is finite
+P2_ROWS, P2_CHECK_ITERS, P2_ITERS, P2_REPS = 8192, 2000, 20_000, 3
+P2_FINITE_ITERS, P2_CHAIN_MODES = (1, 5, 15), ("base", "dmaonly")
 
 
 def check(cond, msg):
@@ -921,6 +1003,7 @@ def counters():
     from sfvp_tpu_torch.kernels.bvh_tlas import (
         two_level_occlusion, two_level_trace)
     from sfvp_tpu_torch.kernels.envfetch import env_fetch, env_fetch_ablate
+    from sfvp_tpu_torch.kernels.leafprobe import leaf_probe, smem_dma
     from sfvp_tpu_torch.kernels.megakernel import wave_render
     from sfvp_tpu_torch.kernels.megakernel_bvh import (
         bvh_regen_render, tlas_regen_render)
@@ -930,7 +1013,8 @@ def counters():
             "K4": packet_occlusion, "K5": bvh_regen_render,
             "K6": packet_trace2, "K7": two_level_trace,
             "K8": two_level_occlusion,
-            "K9": tlas_regen_render, "P3": env_fetch, "P4": env_fetch_ablate}
+            "K9": tlas_regen_render, "P3": env_fetch, "P4": env_fetch_ablate,
+            "P2": leaf_probe, "P5": smem_dma}
 
 
 def only(**launched):
@@ -1089,12 +1173,19 @@ def bvh_timing_phase(sphere):
 
 
 def big_sphere_phase(sphere):
-    """K5 on the 500k sphere's tree (LBVH, the builder="auto" side above
-    200k triangles) at the size the main path renders it, held against its
-    twin; and K5 per pixel and per segment on the 500k and the 100k trees
-    at that size, beside each tree's pops per segment. Returns K5's
-    largest absolute difference on the 500k tree, and the 500k sphere's
-    set-up (scene_setup), which slice 5's phases trace through K6."""
+    """K5 on the 500k sphere's tree (the native SAH since slice 7, as
+    sfvp_tpu's builder="auto" with its library; LBVH before) at the size
+    the main path renders it, held against its twin; and K5 per pixel and
+    per segment on the 500k and the 100k trees at that size, beside each
+    tree's pops per segment. The tree's set-up seconds, and checks that it
+    stays past the streaming threshold (so the wavefront loop traces it
+    through K6) within K6's packet stack. Returns K5's largest absolute
+    difference on the 500k tree, and the 500k sphere's set-up
+    (scene_setup), which slice 5's phases trace through K6."""
+    from sfvp_tpu_torch import native
+    from sfvp_tpu_torch.dispatch import STREAM_SCENE_BYTES, stream_tris
+    from sfvp_tpu_torch.kernels import build
+    from sfvp_tpu_torch.kernels.bvh_packet2 import LEAF_Q
     from sfvp_tpu_torch.kernels.megakernel_bvh import (
         bvh_regen_render, bvh_regen_render_plain)
 
@@ -1103,7 +1194,16 @@ def big_sphere_phase(sphere):
           f"sphere at {BIG_W}x{BIG_H}, {BVH_SPP} spp, depth {BVH_DEPTH}, "
           f"cosine + RR, CUDA events; each vs its twin at {n}x{n}, {spp} "
           "spp")
+    check(native.sah_available(), "the native SAH builder did not build")
     big = scene_setup("sphere", BIG_TRIS, width=BIG_W, height=BIG_H)
+    wide = big["wide"]
+    nbytes = wide.nodes.nbytes + wide.tris.nbytes
+    print(f"  500k tree: native SAH, {nbytes} bytes (streamed past "
+          f"{STREAM_SCENE_BYTES}), max_stack {wide.max_stack} + leaf_q "
+          f"{LEAF_Q} of K6's {build.MAX_PACKET_STACK}")
+    check(stream_tris(big["cfg"], wide), "the 500k sphere no longer streams")
+    check(wide.max_stack + LEAF_Q <= build.MAX_PACKET_STACK,
+          f"max_stack {wide.max_stack} past K6's packet stack")
     worst = 0.0
     for name, s in (("500k", big), ("100k", sphere)):
         dw = s["dw"]
@@ -1430,6 +1530,21 @@ def nee_timing_phase(city):
     return times, worst
 
 
+def lamp_scene():
+    """The lit field's lamp, tests/test_tlas.py:131-143: two triangles at
+    y = 4 of emission 9."""
+    from sfvp_tpu_torch.scene.objload import Scene
+
+    return Scene(
+        vertices=np.asarray([
+            [-1.2, 4.0, -1.2], [1.2, 4.0, -1.2], [1.2, 4.0, 1.2],
+            [-1.2, 4.0, -1.2], [1.2, 4.0, 1.2], [-1.2, 4.0, 1.2],
+        ], np.float32),
+        indices=np.arange(6, dtype=np.uint32),
+        face_diffuse=np.zeros((2, 3), np.float32),
+        face_emission=np.full((2, 3), 9.0, np.float32))
+
+
 def field_setup():
     """The instanced field of ``--scene instanced --scene-tris
     FIELD_TRIS`` with the CLI's view and sky, cosine, and the lit field
@@ -1441,19 +1556,11 @@ def field_setup():
     from sfvp_tpu_torch.cli import procedural_scene
     from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
     from sfvp_tpu_torch.kernels.bvh_tlas import device_two_level
-    from sfvp_tpu_torch.scene.objload import Scene
 
     insts, cfg = procedural_scene("instanced", FIELD_TRIS, RenderConfig(
         width=BVH_W, height=BVH_H, spp_per_step=BVH_SPP, max_depth=BVH_DEPTH,
         sampling="cosine"))
-    lamp = Scene(
-        vertices=np.asarray([
-            [-1.2, 4.0, -1.2], [1.2, 4.0, -1.2], [1.2, 4.0, 1.2],
-            [-1.2, 4.0, -1.2], [1.2, 4.0, 1.2], [-1.2, 4.0, 1.2],
-        ], np.float32),
-        indices=np.arange(6, dtype=np.uint32),
-        face_diffuse=np.zeros((2, 3), np.float32),
-        face_emission=np.full((2, 3), 9.0, np.float32))
+    lamp = lamp_scene()
     out = []
     for name, scene, c in (
             ("field", insts, cfg),
@@ -2622,6 +2729,500 @@ def env_timing_phase(sphere, tex, rows, maps):
                       f"({b[1]})")
     return times, worst
 
+def material_ops(counts, cfg, npix):
+    """FP32 operations of the material and lens work a twin counted: a GGX
+    hit builds its frame, bounces, and evaluates its brdf once a light
+    sample (area lights, and the environment under env NEE); a dielectric
+    hit bounces; with an open lens every camera ray passes it."""
+    samples = int(cfg.use_nee)
+    ops = (counts.get("glossy_hits", 0)
+           * (GGX_FRAME_OPS + GGX_BOUNCE_OPS
+              + samples * (GGX_FRAME_OPS + GGX_EVAL_OPS))
+           + counts.get("diel_hits", 0) * DIEL_OPS)
+    if cfg.camera.lens_radius > 0:
+        ops += npix * cfg.spp_per_step * LENS_OPS
+    return ops
+
+
+def glossy_city_setup(frac, width):
+    """bench.py's glossy city at emissive fraction ``frac``, its camera and
+    sky, cosine + RR + NEE, ``width``^2 at MAT_SPP spp, on the card with
+    its wide BVH (the native SAH) and light table."""
+    from sfvp_tpu_torch import CameraConfig, RenderConfig, upload
+    from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
+    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
+    from sfvp_tpu_torch.kernels.bvh_packet import device_wide
+    from sfvp_tpu_torch.scene.procedural import city_mesh
+
+    scene = city_mesh(**GLOSSY_CITY, emissive_frac=frac)
+    cfg = RenderConfig(width=width, height=width, spp_per_step=MAT_SPP,
+                       max_depth=BVH_DEPTH, camera=CameraConfig.look_at(
+                           **CITY_VIEW), sky_emission=(0.8, 0.85, 1.0),
+                       **MAT_FLAGS)
+    buffers = upload(scene, device=DEVICE)
+    t0 = time.perf_counter()
+    wide = build_wide_from_buffers(buffers)
+    lights = build_light_table_from_buffers(buffers)
+    glossy = int((buffers.mtype == 2).sum())
+    print(f"  glossy city (emissive_frac {frac}): {buffers.num_tris} "
+          f"triangles ({glossy} GGX, {lights.num} emissive), wide BVH "
+          f"{wide.nodes.shape[0]} nodes + {wide.tris.shape[0]} leaf rows, "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    return dict(scene=scene, cfg=cfg, buffers=buffers, wide=wide,
+                dw=device_wide(wide, DEVICE), lights=lights)
+
+
+def glass_cornell(tmp):
+    """The Cornell Box as an OBJ whose short box is glass (GLASS_MTL), and
+    the focal distance of its back wall along the reference camera's
+    view axis."""
+    from sfvp_tpu_torch import CameraConfig, cornell_box_path, load_obj
+
+    src = cornell_box_path()
+    mtl = open(src[:-3] + "mtl").read()
+    head = "newmtl shortBox\n"
+    check(head in mtl, "the bundled Cornell Box changed")
+    i = mtl.index(head) + len(head)
+    j = mtl.index("newmtl", i)
+    with open(os.path.join(tmp, "CornellBox-Original.mtl"), "w") as f:
+        f.write(mtl[:i] + GLASS_MTL + "\n" + mtl[j:])
+    path = os.path.join(tmp, "glass.obj")
+    with open(path, "w") as f:
+        f.write(open(src).read())
+    s = load_obj(path)
+    names = [s.material_names[k] for k in s.face_material_id]
+    back = np.asarray([n == "backWall" for n in names])
+    cam = CameraConfig()
+    fwd = np.subtract(cam.center, cam.origin)
+    fwd = fwd / np.linalg.norm(fwd)
+    depth = float(((s.triangles()[back].reshape(-1, 3) - cam.origin)
+                   @ fwd).mean())
+    check(int((s.face_mat_type == 3).sum()) > 0, "no glass face")
+    print(f"  glass Cornell: {int((s.face_mat_type == 3).sum())} glass "
+          f"faces, the back wall {depth:.4f} along the view axis")
+    return path, depth
+
+
+def glass_setup(tmp):
+    from sfvp_tpu_torch import CameraConfig, RenderConfig, load_obj, upload
+
+    path, focus = glass_cornell(tmp)
+    cam = dataclasses.replace(CameraConfig(), lens_radius=GLASS_LENS_RADIUS,
+                              focus_dist=focus)
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, spp_per_step=MAIN_SPP,
+                       max_depth=MAIN_DEPTH, camera=cam)
+    return dict(path=path, focus=focus, cfg=cfg,
+                buffers=upload(load_obj(path), device=DEVICE))
+
+
+def glossy_field_setup():
+    """The instanced field of FIELD_TRIS with its first ball mesh GGX
+    (roughness 0.3, Ks 0.85) and its second glass (IOR 1.5), and the lamp
+    of the lit field, cosine + RR + NEE + MIS (LIT_FLAGS)."""
+    from sfvp_tpu_torch import RenderConfig, upload
+    from sfvp_tpu_torch.accel.instances import Instance, flatten_instances
+    from sfvp_tpu_torch.accel.tlas import build_two_level
+    from sfvp_tpu_torch.cli import procedural_scene
+    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
+    from sfvp_tpu_torch.kernels.bvh_tlas import device_two_level
+
+    insts, cfg = procedural_scene("instanced", FIELD_TRIS, RenderConfig(
+        width=BVH_W, height=BVH_H, spp_per_step=BVH_SPP, max_depth=BVH_DEPTH,
+        **LIT_FLAGS))
+    meshes = {}
+    for inst in insts[1:]:
+        s = inst.scene
+        if id(s) not in meshes:
+            t, glass = s.num_triangles, len(meshes) == 1
+            meshes[id(s)] = dataclasses.replace(
+                s, face_mat_type=np.full(t, 3 if glass else 2, np.int32),
+                face_rough=np.full(t, 0.125 if glass else 0.3, np.float32),
+                face_specular=np.full((t, 3), 1.0 if glass else 0.85,
+                                      np.float32))
+    insts = ([insts[0]] + [dataclasses.replace(i, scene=meshes[id(i.scene)])
+                           for i in insts[1:]] + [Instance(scene=lamp_scene())])
+    t0 = time.perf_counter()
+    tl = build_two_level(insts)
+    flat = upload(flatten_instances(insts), device=DEVICE)
+    lights = build_light_table_from_buffers(flat)
+    print(f"  glossy field: {len(insts)} instances, {flat.num_tris} "
+          f"triangles flattened ({int((flat.mtype == 2).sum())} GGX, "
+          f"{int((flat.mtype == 3).sum())} glass), two-level BVH built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return dict(insts=insts, cfg=cfg, tl=tl, flat=flat, lights=lights,
+                dt=device_two_level(tl, DEVICE))
+
+
+def mat_twin_phase(city, glass, field):
+    """Phase 29: K5 on the glossy city, K1 on the glass Cornell through
+    the thin lens (and K5 on it with traversal="bvh"), K9 on the glossy lit
+    field, each against its twin on the card, the material and lens code
+    running."""
+    from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
+    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
+    from sfvp_tpu_torch.integrate.wavefront import material_flags
+    from sfvp_tpu_torch.kernels.bvh_packet import device_wide
+    from sfvp_tpu_torch.kernels.megakernel import scene_table
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render, bvh_regen_render_plain, tlas_regen_render)
+    from sfvp_tpu_torch.kernels.megakernel_regen import (
+        regen_render, regen_render_plain)
+
+    n, m = NEE_TWIN_SIZE, BVH_TWIN_SIZE
+    phase(f"mat twins: K5 on the glossy city at {n}x{n}, {MAT_SPP} spp; K1 "
+          f"on the glass Cornell through the lens at {n}x{n}, {NEE_TWIN_SPP} "
+          f"spp, parity and cosine + RR + NEE + MIS, K5 on it at {m}x{m}; "
+          f"K9 on the glossy field at {m}x{m}, {EARLY_TWIN_SPP} spp")
+    worst = {"K1": 0.0, "K5": 0.0, "K9": 0.0}
+    args = dict(cfg=dataclasses.replace(city["cfg"], width=n, height=n),
+                global_shape=(n, n), npix=n * n, has_mirrors=False,
+                lights=city["lights"], **material_flags(city["buffers"]))
+    worst["K5"] = compare("K5 glossy city", bvh_regen_render(
+        city["dw"], 3, 0, **args), bvh_regen_render_plain(
+        city["dw"], 3, 0, **args), MAT_SPP, K5_TWIN_REL_RMSE)
+
+    buffers = glass["buffers"]
+    table = scene_table(buffers)
+    mats = material_flags(buffers)
+    lights = build_light_table_from_buffers(buffers)
+    dw = device_wide(build_wide_from_buffers(buffers), DEVICE)
+    for case, kw in (("parity", {}), ("nee", NEE_FLAGS)):
+        cfg = dataclasses.replace(glass["cfg"], **kw)
+        for kernel, w, spp in (("K1", n, NEE_TWIN_SPP), ("K5", m, BVH_TWIN_SPP)):
+            args = dict(cfg=dataclasses.replace(cfg, width=w, height=w,
+                                                spp_per_step=spp),
+                        global_shape=(w, w), npix=w * w, has_mirrors=False,
+                        lights=lights if cfg.use_nee else None, **mats)
+            if kernel == "K1":
+                args["num_tris"] = buffers.num_tris
+                got = regen_render(table, 3, 0, **args)
+                exp = regen_render_plain(table, 3, 0, **args)
+            else:
+                got = bvh_regen_render(dw, 3, 0, **args)
+                exp = bvh_regen_render_plain(dw, 3, 0, **args)
+            worst[kernel] = max(worst[kernel], compare(
+                f"{kernel} glass DOF {case}", got, exp, spp,
+                K5_TWIN_REL_RMSE))
+
+    worst["K1"] = max(worst["K1"], brute_material_twins())
+
+    args = dict(cfg=dataclasses.replace(field["cfg"], width=m, height=m,
+                                        spp_per_step=EARLY_TWIN_SPP),
+                global_shape=(m, m), npix=m * m, has_mirrors=False,
+                lights=field["lights"], **material_flags(field["flat"]))
+    worst["K9"] = compare("K9 glossy field", tlas_regen_render(
+        field["dt"], 3, 0, **args), bvh_regen_render_plain(
+        field["dt"], 3, 0, **args), EARLY_TWIN_SPP, K5_TWIN_REL_RMSE)
+    return worst
+
+
+def brute_material_twins():
+    """K1 past 2,235 triangles with materials and the lens: spheres of
+    BRUTE_LATS rings (1,012 triangles, the table in opted-in shared
+    memory; 2,964, in tiles) whose faces are in turn diffuse, GGX
+    (roughness 0.3), glass and mirror, through a lens focused on the
+    sphere, at BRUTE_SIZE^2, BRUTE_SPP spp; returns the largest absolute
+    difference."""
+    from sfvp_tpu_torch import CameraConfig, RenderConfig
+    from sfvp_tpu_torch.kernels import build
+    from sfvp_tpu_torch.kernels.megakernel import scene_table
+    from sfvp_tpu_torch.kernels.megakernel_regen import (
+        regen_render, regen_render_plain)
+    from sfvp_tpu_torch.scene import from_arrays
+    from sfvp_tpu_torch.scene.procedural import sphere_mesh
+
+    worst, nb = 0.0, BRUTE_SIZE
+    cam = dataclasses.replace(CameraConfig.look_at(
+        origin=(0.0, 2.2, 5.0), target=(0.0, 0.0, 0.0), fov_y_deg=50.0),
+        lens_radius=GLASS_LENS_RADIUS, focus_dist=float(np.hypot(2.2, 5.0)))
+    cfg = RenderConfig(width=nb, height=nb, spp_per_step=BRUTE_SPP,
+                       max_depth=BVH_DEPTH, sampling="cosine", use_rr=True,
+                       camera=cam, sky_emission=(0.8, 0.85, 1.0))
+    for n_lat in BRUTE_LATS:
+        s = sphere_mesh(n_lat=n_lat, n_lon=n_lat, bump=0.3)
+        t = s.num_triangles
+        mt = (np.arange(t) % 4).astype(np.int32)
+        rough = np.where(mt == 2, 0.3, np.where(mt == 3, 0.125, 0.0))
+        spec = np.repeat(np.where(mt > 0, 0.9, 0.0)[:, None], 3,
+                         axis=1).astype(np.float32)
+        buffers = from_arrays(s.triangles(), s.face_diffuse, s.face_emission,
+                              spec, mt, rough.astype(np.float32),
+                              device=DEVICE)
+        table = scene_table(buffers)
+        args = dict(cfg=cfg, num_tris=t, global_shape=(nb, nb), npix=nb * nb,
+                    has_mirrors=True, has_glossy=True, has_diel=True)
+        tile = build.table_plan(t, 20)[0]
+        worst = max(worst, compare(
+            f"K1 materials + lens, {t} tris ({'tiled' if tile else 'opt-in'})",
+            regen_render(table, 3, 0, **args),
+            regen_render_plain(table, 3, 0, **args), BRUTE_SPP))
+    return worst
+
+
+def mat_main_path_phase(tmp, city, city2048, glass, field):
+    """Phase 30: the entry points a user calls with materials and the
+    lens, each between zeroed and read launch counts: the CLI on the glass
+    Cornell through the lens (K1 only); the Renderer on the glossy city at
+    both of bench.py's shapes (K5 only), on the glossy field (K9 only),
+    and with megakernel_regen=False on the glossy city at MAT_LOOP_SIZE^2
+    (K3 and K4 only; its image equal to K5's step there)."""
+    from sfvp_tpu_torch import Renderer, cli, init_state
+    from sfvp_tpu_torch.dispatch import select_render_step
+
+    phase(f"mat main path: cli --obj glass.obj --lens-radius "
+          f"{GLASS_LENS_RADIUS} --focus-dist <back wall> at {MAIN_W}x"
+          f"{MAIN_H}, {MAIN_SPP} spp (K1); the glossy city at {MAT_W}x{MAT_W} "
+          f"and {CITY2048_W}x{CITY2048_W}, {MAT_SPP} spp, cosine + RR + NEE "
+          f"(K5), the loop over K3 + K4 at {MAT_LOOP_SIZE}x{MAT_LOOP_SIZE}; "
+          f"the glossy field at {BVH_W}x{BVH_H}, {BVH_SPP} spp (K9)")
+    runs = {}
+    reset_counts()
+    argv = ["--obj", glass["path"], "--lens-radius", str(GLASS_LENS_RADIUS),
+            "--focus-dist", repr(glass["focus"]), "--width", str(MAIN_W),
+            "--height", str(MAIN_H), "--spp", str(MAIN_SPP),
+            "--max-depth", str(MAIN_DEPTH), "--steps", "2", "--quiet"]
+    out, log = os.path.join(tmp, "glass.png"), os.path.join(tmp,
+                                                            "glass.jsonl")
+    check(cli.main(["--device", DEVICE, *argv, "--out", out,
+                    "--log", log]) == 0, "the glass cli run failed")
+    torch.cuda.synchronize()
+    runs["cli_glass"] = read_counts()
+    check(runs["cli_glass"] == only(K1=2), f"cli glass launches "
+                                           f"{runs['cli_glass']}")
+    print_steps([json.loads(x) for x in open(log).read().splitlines()])
+    check_image("glass Cornell", _read_png(out), MAIN_H, MAIN_W)
+
+    for name, s, kernels in (
+            ("renderer_city648", city, dict(K5=2)),
+            ("renderer_city2048", city2048, dict(K5=2)),
+            ("renderer_glossy_field", field, dict(K9=2))):
+        scene = s["insts"] if "insts" in s else s["scene"]
+        r = Renderer(s["cfg"], scene, DEVICE)
+        reset_counts()
+        recs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r.step(1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            recs.append(ms)
+        runs[name] = read_counts()
+        check(runs[name] == only(**kernels), f"{name} launches {runs[name]}")
+        h, w = s["cfg"].height, s["cfg"].width
+        segs = float(r.state.mrays) * 1e6 / 2
+        print(f"  {name}: set-up {r.bvh_build_s:.3f} s; step ms "
+              + ", ".join(f"{x:.3f}" for x in recs)
+              + f"; {segs / (recs[-1] * 1e3):.1f} Mrays/s")
+        img = r.state.accum.cpu().numpy()
+        check_image(name, np.clip(img, 0.0, 1.0), h, w)
+        del r
+
+    n = MAT_LOOP_SIZE
+    cfg = dataclasses.replace(city["cfg"], width=n, height=n)
+    wf = select_render_step(dataclasses.replace(cfg, megakernel_regen=False),
+                            city["buffers"], wide=city["wide"])
+    k5 = select_render_step(cfg, city["buffers"], wide=city["wide"])
+    reset_counts()
+    a = wf(init_state(n, n, DEVICE))
+    torch.cuda.synchronize()
+    runs["renderer_city_k3k4"] = read_counts()
+    per_step = MAT_SPP * BVH_DEPTH
+    check(runs["renderer_city_k3k4"] == only(K3=per_step, K4=per_step),
+          f"glossy city loop launches {runs['renderer_city_k3k4']}")
+    b = k5(init_state(n, n, DEVICE))
+    rel = rel_rmse(a.accum, b.accum)
+    seg_a, seg_b = (round(float(x) * 1e6) for x in (a.mrays, b.mrays))
+    print(f"  glossy city loop over K3 + K4 against K5's step: rel_rmse "
+          f"{rel:.3e}, segments {seg_a} vs {seg_b}")
+    check(rel <= WF_K5_REL_RMSE and seg_a == seg_b,
+          f"the glossy city loop against K5: rel_rmse {rel}, segments "
+          f"{seg_a} vs {seg_b}")
+    return runs
+
+
+def mat_timing_phase(city, city2048, glass, field):
+    """Phase 31: K5 per glossy-city step at both shapes, K1 per glass +
+    lens Cornell step, K9 per glossy lit-field step, CUDA events, each
+    held to its twin (K9's at FIELD_MAT_TWIN^2, FIELD_MAT_TWIN_SPP spp;
+    its timed step at the full shape to the loop over K7 + K8, within the
+    twin bounds) and beside its bound (K9's from its twin's counts,
+    scaled to the full step)."""
+    from sfvp_tpu_torch import init_state
+    from sfvp_tpu_torch.dispatch import select_instanced_render_step
+    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
+    from sfvp_tpu_torch.integrate.wavefront import accumulate, material_flags
+    from sfvp_tpu_torch.kernels.megakernel import scene_table
+    from sfvp_tpu_torch.kernels.megakernel_bvh import (
+        bvh_regen_render, bvh_regen_render_plain, tlas_regen_render)
+    from sfvp_tpu_torch.kernels.megakernel_regen import (
+        regen_render, regen_render_plain)
+
+    phase("mat times and twin checks (the glossy city at both shapes, the "
+          "glass Cornell through the lens at the main path's, the glossy "
+          f"lit field at {FIELD_MAT_TWIN}x{FIELD_MAT_TWIN}), CUDA events")
+    times, worst = {}, {"K1": 0.0, "K5": 0.0, "K9": 0.0}
+    for name, s in (("glossy city 648", city), ("glossy city 2048",
+                                                city2048)):
+        cfg = s["cfg"]
+        npix = cfg.width * cfg.height
+        args = dict(cfg=cfg, global_shape=(cfg.height, cfg.width), npix=npix,
+                    has_mirrors=False, lights=s["lights"],
+                    **material_flags(s["buffers"]))
+        ms, got = cuda_ms(lambda: bvh_regen_render(s["dw"], 1, 0, **args), 5)
+        counts = {}
+        plain, exp = cuda_ms(lambda: bvh_regen_render_plain(
+            s["dw"], 1, 0, counts=counts, **args), 1, warm=False)
+        worst["K5"] = max(worst["K5"], compare(
+            f"K5 {name}", got, exp, MAT_SPP, K5_TWIN_REL_RMSE))
+        segs = int(exp[3].sum(dtype=torch.int64))
+        ops = (traversal_ops(counts) + segs * SHADE_OPS
+               + traversal_ops(counts, "shadow_", sort=False)
+               + counts["shadow_rays"] * NEE_OPS
+               + material_ops(counts, cfg, npix))
+        nbytes = tree_nbytes(s["wide"]) + s["lights"].rows.numel() * 4 + (
+            npix * 16)
+        times[f"K5 {name}"] = (ms, plain) + bound(ops, nbytes)
+        print(f"  K5 {name}: kernel {ms:.3f} ms/step, twin {plain:.1f} ms; "
+              f"{segs} segments ({segs / (ms * 1e3):.1f} Mrays/s), "
+              f"{counts['glossy_hits']} on the GGX ground, "
+              f"{counts['shadow_rays']} shadow rays; bound "
+              f"{times[f'K5 {name}'][2]:.3f} ms ({times[f'K5 {name}'][3]})")
+
+    buffers = glass["buffers"]
+    table = scene_table(buffers)
+    cfg = glass["cfg"]
+    npix = MAIN_W * MAIN_H
+    args = dict(cfg=cfg, num_tris=buffers.num_tris,
+                global_shape=(MAIN_H, MAIN_W), npix=npix, has_mirrors=False,
+                **material_flags(buffers))
+    ms, got = cuda_ms(lambda: regen_render(table, 1, 0, **args), 5)
+    counts = {}
+    plain, exp = cuda_ms(lambda: regen_render_plain(
+        table, 1, 0, counts=counts, **args), 1, warm=False)
+    worst["K1"] = compare("K1 glass DOF main", got, exp, MAIN_SPP)
+    segs = int(exp[3].sum(dtype=torch.int64))
+    ops = (segs * (buffers.num_tris * TRI_OPS_TABLE + SHADE_OPS)
+           + material_ops(counts, cfg, npix))
+    times["K1 glass dof"] = (ms, plain) + bound(
+        ops, table.numel() * 4 + npix * 16)
+    print(f"  K1 glass + lens: kernel {ms:.3f} ms/step, twin {plain:.1f} ms; "
+          f"{segs} segments ({segs / (ms * 1e3):.1f} Mrays/s), "
+          f"{counts['diel_hits']} on glass; bound "
+          f"{times['K1 glass dof'][2]:.3f} ms ({times['K1 glass dof'][3]})")
+
+    cfg = field["cfg"]
+    npix = BVH_W * BVH_H
+    mats = material_flags(field["flat"])
+    args = dict(cfg=cfg, global_shape=(BVH_H, BVH_W), npix=npix,
+                has_mirrors=False, lights=field["lights"], **mats)
+    ms, full = cuda_ms(lambda: tlas_regen_render(field["dt"], 1, 0, **args),
+                       5)
+    # the timed step's own output against the loop over K7 + K8 at the same
+    # shape and seed (the twin's 16x the work would take minutes)
+    def first_step():
+        return init_state(BVH_H, BVH_W, DEVICE)._replace(frame=1)
+
+    k9 = accumulate(first_step(), full[:-1],
+                    full[-1].sum(dtype=torch.int64), cfg.spp_per_step)
+    wf = select_instanced_render_step(
+        dataclasses.replace(cfg, megakernel_regen=False), field["flat"],
+        field["tl"])(first_step())
+    compare_images(f"K9 glossy field at {BVH_W}x{BVH_H}, {BVH_SPP} spp vs "
+                   "the loop over K7 + K8", k9.accum, wf.accum, k9.mrays,
+                   wf.mrays)
+    del k9, wf, full
+    n, spp = FIELD_MAT_TWIN, FIELD_MAT_TWIN_SPP
+    small = dict(args, cfg=dataclasses.replace(cfg, width=n, height=n,
+                                               spp_per_step=spp),
+                 global_shape=(n, n), npix=n * n)
+    got = tlas_regen_render(field["dt"], 1, 0, **small)
+    counts = {}
+    plain, exp = cuda_ms(lambda: bvh_regen_render_plain(
+        field["dt"], 1, 0, counts=counts, **small), 1, warm=False)
+    worst["K9"] = compare("K9 glossy field", got, exp, spp, K5_TWIN_REL_RMSE)
+    # the bound of the full step from the twin's counts at n^2, spp: the
+    # counts scale with the paths traced, (BVH_W / n)^2 * BVH_SPP / spp
+    scale = npix * BVH_SPP / (n * n * spp)
+    segs = int(exp[3].sum(dtype=torch.int64))
+    ops = scale * (traversal_ops(counts) + counts["hits"] * WORLD_OPS
+                   + segs * SHADE_OPS
+                   + traversal_ops(counts, "shadow_", sort=False)
+                   + counts["shadow_rays"] * NEE_OPS
+                   + material_ops(counts, small["cfg"], n * n))
+    nbytes = (two_level_nbytes(field["tl"]) + field["lights"].rows.numel() * 4
+              + npix * 16)
+    times["K9 glossy field"] = (ms, plain) + bound(ops, nbytes)
+    print(f"  K9 glossy lit field: kernel {ms:.3f} ms/step; twin {plain:.1f} "
+          f"ms at {n}x{n}, {spp} spp; {counts['glossy_hits']} GGX and "
+          f"{counts['diel_hits']} glass hits there; bound "
+          f"{times['K9 glossy field'][2]:.3f} ms "
+          f"({times['K9 glossy field'][3]}, the counts scaled by {scale:g})")
+    return times, worst
+
+
+def probe_phase():
+    """Phase 32: P2's five modes over an (P2_ROWS, 128) table and P5, each
+    held bitwise to its twin, then timed queued behind a sleeping kernel
+    (one thread's serial chain: a latency probe); ns per iteration and
+    each mode less base."""
+    from sfvp_tpu_torch.kernels import leafprobe
+
+    phase(f"leaf-row probes: P2 over a ({P2_ROWS}, 128) table, bitwise over "
+          f"{P2_CHECK_ITERS} iterations ({', '.join(P2_CHAIN_MODES)}: over "
+          f"{P2_FINITE_ITERS}), timed over {P2_ITERS}; P5")
+    rows_cpu = torch.from_numpy(
+        np.random.default_rng(7).random((P2_ROWS, 128), np.float32))
+    rows = rows_cpu.to(DEVICE)
+    times, worst, ns, checked = {}, {}, {}, {}
+    for mode in leafprobe.MODES:
+        worst[mode], plain = 0.0, 0.0
+        checked[mode] = (P2_FINITE_ITERS if mode in P2_CHAIN_MODES
+                         else (P2_CHECK_ITERS,))
+        for iters in checked[mode]:
+            got = leafprobe.leaf_probe(rows, iters, mode).cpu()
+            t0 = time.perf_counter()
+            exp = leafprobe.leaf_probe_plain(rows_cpu, iters, mode)
+            plain = (time.perf_counter() - t0) * 1e3
+            check(bool(torch.isfinite(exp).all()),
+                  f"P2 {mode} over {iters}: the twin's result is not finite")
+            check(torch.equal(got, exp), f"P2 {mode} over {iters} disagrees "
+                                         f"with its twin: {float(got[0, 0])} "
+                                         f"vs {float(exp[0, 0])}")
+            worst[mode] = max(worst[mode],
+                              float((got - exp).abs().max()))
+        ms = queued_ms(lambda: leafprobe.leaf_probe(rows, P2_ITERS, mode),
+                       P2_REPS)
+        ns[mode] = ms * 1e6 / P2_ITERS
+        # bytes: the rows the loop reads (none in base; two staged rows in
+        # smemload), the (8, 128) output; operations: 127 adds a row, and
+        # base's and dmaonly's 128 constant adds
+        reads = {"base": 0, "smemload": 2 * 512}.get(mode, P2_ITERS * 512)
+        ops = P2_ITERS * (255 if mode in ("base", "dmaonly") else 128)
+        times[mode] = (ms, plain) + bound(ops, reads + 8 * 128 * 4)
+        print(f"  P2 {mode}: bitwise over {checked[mode]} iterations (max "
+              f"abs {worst[mode]}); {ms:.4f} ms a launch of {P2_ITERS} "
+              f"iterations, {ns[mode]:.2f} ns/iteration; twin {plain:.1f} ms "
+              f"over {checked[mode][-1]}; bound {times[mode][2]:.5f} ms "
+              f"({times[mode][3]})")
+    for mode in leafprobe.MODES[1:]:
+        print(f"  P2 {mode} - base: {ns[mode] - ns['base']:.2f} ns/iteration")
+    x_cpu = torch.arange(16 * 128, dtype=torch.float32).reshape(16, 128)
+    x = x_cpu.to(DEVICE)
+    got = leafprobe.smem_dma(x).cpu()
+    t0 = time.perf_counter()
+    exp = leafprobe.smem_dma_plain(x_cpu)
+    plain = (time.perf_counter() - t0) * 1e3
+    want = float((np.arange(128, dtype=np.float32) + 128.0)[
+        np.arange(8) * 16].sum())
+    check(torch.equal(got, exp) and float(got[0, 0]) == want,
+          f"P5 read {float(got[0, 0])}, want {want}")
+    worst["P5"] = float((got - exp).abs().max())
+    ms = queued_ms(lambda: leafprobe.smem_dma(x), P2_REPS)
+    times["P5"] = (ms, plain) + bound(8 * 16, 512 + 8 * 128 * 4)
+    print(f"  P5: {float(got[0, 0])} == {want}; {ms:.4f} ms a launch; "
+          f"bound {times['P5'][2]:.6f} ms ({times['P5'][3]})")
+    return times, worst, ns
+
 
 def env_nbytes(args):
     """Bytes of a render's environment map, its distribution and its
@@ -2728,6 +3329,23 @@ def main() -> int:
               + ", ".join(f"{ms:.3f}" for ms, _ in steps) + "; Mrays/s "
               + ", ".join(f"{mr:.3f}" for _, mr in steps))
 
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("mat set-up: bench.py's glossy city at both emissive "
+              "fractions, the glass Cornell, the glossy field")
+        city = glossy_city_setup(CITY648_FRAC, MAT_W)
+        city2048 = glossy_city_setup(CITY2048_FRAC, CITY2048_W)
+        glass = glass_setup(tmp)
+        gfield = glossy_field_setup()
+        mat_worst = mat_twin_phase(city, glass, gfield)
+        mat_runs = mat_main_path_phase(tmp, city, city2048, glass, gfield)
+        mat_times, mat_time_worst = mat_timing_phase(city, city2048, glass,
+                                                     gfield)
+        del city, city2048, glass, gfield
+    mat_worst = {k: max(v, mat_time_worst[k]) for k, v in mat_worst.items()}
+    probe_times, probe_worst, probe_ns = probe_phase()
+    probe_launches = {k: sum(r[k] for r in mat_runs.values())
+                      for k in ("P2", "P5")}
+
     env_launches = {k: sum(env_runs[r][k] for r in (
         "cli_env", "cli_env_nee", "cli_sphere_env", *rows)) for k in (
         "P3", "P4")}
@@ -2752,7 +3370,11 @@ def main() -> int:
                           env_times["K1 env"]),
                      env_nee=(f"{step[:-1]}, sky map, cosine + RR + NEE + "
                               "MIS)", env_runs["cli_env_nee"]["K1"],
-                              env_worst["K1"], env_times["K1 env nee"])),
+                              env_worst["K1"], env_times["K1 env nee"]),
+                     glass_dof=(f"{step[:-1]}, glass short box, thin lens "
+                                f"{GLASS_LENS_RADIUS})",
+                                mat_runs["cli_glass"]["K1"],
+                                mat_worst["K1"], mat_times["K1 glass dof"])),
         kernel_entry("wave_render (K2)", "sfvp_tpu_torch/csrc/wave_render.cu",
                      "sfvp_tpu/kernels/megakernel.py:366",
                      f"{step}: {MAIN_SPP} launches",
@@ -2785,7 +3407,17 @@ def main() -> int:
                                f"bench.py's {name})", env_runs[name]["K5"]
                                // (BENCH_STEPS + 1),
                                env_worst["K5"], env_times[name])
-                        for name in rows}),
+                        for name in rows},
+                     glossy_city_648=(
+                         f"step ({MAT_W}x{MAT_W}, {MAT_SPP} spp, bench.py's "
+                         "city_648lights: GGX ground, cosine + RR + NEE)",
+                         mat_runs["renderer_city648"]["K5"], mat_worst["K5"],
+                         mat_times["K5 glossy city 648"]),
+                     glossy_city_2048=(
+                         f"step ({CITY2048_W}x{CITY2048_W}, {MAT_SPP} spp, "
+                         "bench.py's city_sorted_2048)",
+                         mat_runs["renderer_city2048"]["K5"],
+                         mat_worst["K5"], mat_times["K5 glossy city 2048"])),
         dict(kernel_entry("packet_trace2 (K6)",
                      "sfvp_tpu_torch/csrc/packet_trace2.cu",
                      "sfvp_tpu/kernels/bvh_packet2.py:512",
@@ -2825,7 +3457,15 @@ def main() -> int:
                      tlas_runs["cli_field"]["K9"], tlas_worst["K9"],
                      tlas_times["K9 field"],
                      nee=(lit_step, tlas_runs["renderer_lit_k9"]["K9"],
-                          tlas_worst["K9"], tlas_times["K9 lit field"])),
+                          tlas_worst["K9"], tlas_times["K9 lit field"]),
+                     glossy_field=(
+                         f"{lit_step[:-1]}, GGX and glass balls; twin at "
+                         f"{FIELD_MAT_TWIN}x{FIELD_MAT_TWIN}, "
+                         f"{FIELD_MAT_TWIN_SPP} spp, the step against the "
+                         "loop over K7 + K8; bound from the twin's counts "
+                         "scaled to the step)",
+                         mat_runs["renderer_glossy_field"]["K9"],
+                         mat_worst["K9"], mat_times["K9 glossy field"])),
         # the fetch runs inside K1 and K5 on the main path (common.cuh
         # env_lookup): P3's and P4's launches in phase 26's runs, which
         # only() holds to 0
@@ -2852,6 +3492,33 @@ def main() -> int:
                         for h, w in ABLATE_SIZES
                         for mode in ("trig", "noread", "half", "full")
                         if (mode, h) != ("full", 1024)}),
+        # the leaf-row probes run on no render path: their launches in
+        # phase 30's runs, which only() holds to 0; one thread's serial
+        # chain, a latency probe
+        dict(kernel_entry(
+            "leaf_probe (P2)", "sfvp_tpu_torch/csrc/leaf_probe.cu",
+            "benchmarks/micro_leaf_cost.py:98",
+            f"extract mode, launch of {P2_ITERS} iterations over a "
+            f"({P2_ROWS}, 128) table, one thread (latency probe)",
+            probe_launches["P2"], probe_worst["extract"],
+            probe_times["extract"],
+            **{mode: (f"{mode} mode, launch of {P2_ITERS} iterations",
+                      probe_launches["P2"], probe_worst[mode],
+                      probe_times[mode])
+               for mode in ("base", "smemdma", "smemload", "dmaonly")}),
+            plain_per=(f"twin over {P2_CHECK_ITERS} iterations ("
+                       f"{' and '.join(P2_CHAIN_MODES)}: over "
+                       f"{P2_FINITE_ITERS[-1]}), host CPU"),
+            ns_per_iteration=probe_ns,
+            minus_base_ns={m: probe_ns[m] - probe_ns["base"]
+                           for m in probe_ns if m != "base"}),
+        dict(kernel_entry("smem_dma (P5)",
+                          "sfvp_tpu_torch/csrc/leaf_probe.cu",
+                          "benchmarks/micro_smem_dma.py:38",
+                          "launch on a (16, 128) table, one thread",
+                          probe_launches["P5"], probe_worst["P5"],
+                          probe_times["P5"]),
+             plain_per="twin on the host CPU"),
     ]}
     print(card)
     print(json.dumps(report))

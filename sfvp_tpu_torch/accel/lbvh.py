@@ -14,9 +14,9 @@ flattened in DFS order with *skip links* ("threaded" BVH):
         else:
             node = skip[node]                    # jump over the subtree
 
-The arrays equal sfvp_tpu's byte for byte (tests/test_torch_bvh_build.py).
-The JAX package's ctypes builder over csrc/ is not carried over yet
-(ROADMAP.md A.9): ``native="require"`` raises.
+The arrays equal sfvp_tpu's byte for byte (tests/test_torch_bvh_build.py),
+and so do those of the C++ builder (native.py, ``native="auto"`` when its
+library builds; tests/test_torch_native.py).
 """
 
 from __future__ import annotations
@@ -64,14 +64,20 @@ def host_triangles(scene_buffers) -> np.ndarray:
     return np.stack(cols, axis=1).reshape(t, 3, 3)
 
 
-def require_numpy_builder(native: str) -> None:
-    if native == "require":
-        raise NotImplementedError(
-            "the native (C++) BVH builder is not ported to sfvp_tpu_torch "
-            "yet (ROADMAP.md A.9); use native='auto' or 'never' for the "
-            "NumPy builder")
-    if native not in ("auto", "never"):
+def native_builder(native: str, what: str):
+    """The native library when ``native`` asks for it and it loads, else
+    None (the NumPy builder): "auto" takes it when present, "never"
+    never, "require" raises RuntimeError without it (sfvp_tpu
+    lbvh.py:214-222, sah.py:49-57)."""
+    if native not in ("auto", "never", "require"):
         raise ValueError(f"unknown native={native!r}")
+    if native == "never":
+        return None
+    from .. import native as native_mod
+
+    if native == "require":
+        return native_mod.require(what)
+    return native_mod._get_lib()
 
 
 def morton3d(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
@@ -208,10 +214,15 @@ def bvh_from_arrays(
 
 
 def build_bvh(scene_buffers, leaf_size: int = 4, native: str = "auto") -> BVH:
-    """Build from SceneBuffers (uses only the real, unpadded triangles)
-    with the NumPy builder; ``native="require"`` raises (ROADMAP.md A.9)."""
-    require_numpy_builder(native)
-    return bvh_from_arrays(host_triangles(scene_buffers), leaf_size=leaf_size)
+    """Build from SceneBuffers (uses only the real, unpadded triangles):
+    the C++ builder when ``native`` takes it (``native_builder``), else
+    NumPy; both give the same arrays."""
+    tris = host_triangles(scene_buffers)
+    if native_builder(native, "LBVH builder") is not None:
+        from .. import native as native_mod
+
+        return native_mod.build_lbvh_native(tris, leaf_size)
+    return bvh_from_arrays(tris, leaf_size=leaf_size)
 
 
 # ---------------------------------------------------------------------------

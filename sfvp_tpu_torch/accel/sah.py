@@ -5,7 +5,8 @@ surface-area-heuristic sweeps (Wald 2007, 16 bins per axis) instead of
 Morton-bit splits, with the LBVH's output format (threaded DFS skip links
 + contiguous sorted-leaf triangle ranges), so the 8-wide collapse takes
 either. The arrays equal sfvp_tpu's byte for byte
-(tests/test_torch_bvh_build.py).
+(tests/test_torch_bvh_build.py), and so do those of the C++ builder that
+``native="auto"`` takes when its library loads (native.py).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-from .lbvh import BVH, assemble, host_triangles, require_numpy_builder
+from .lbvh import BVH, assemble, host_triangles, native_builder
 
 N_BINS = 16
 _TRAVERSAL_COST = 1.0
@@ -31,10 +32,16 @@ def sah_bvh_from_arrays(
     """Build a threaded binary BVH over (T, 3, 3) triangles with binned SAH
     splits. ``leaf_size``: preferred leaf size (a leaf is made when SAH says
     splitting does not pay AND count <= max_leaf); ``max_leaf``: hard cap
-    (the 8-wide collapse requires <= 8). ``native="require"`` raises: the
-    C++ builder is not ported yet (ROADMAP.md A.9)."""
-    require_numpy_builder(native)
+    (the 8-wide collapse requires <= 8). ``native``: "auto" takes the C++
+    builder (native.py, the same arrays) when its library loads, "never"
+    NumPy, "require" raises without the library (lbvh.native_builder);
+    with ``prim_ids`` NumPy builds, as in sfvp_tpu."""
     tris = np.asarray(tris, np.float32)
+    if (prim_ids is None
+            and native_builder(native, "SAH builder") is not None):
+        from .. import native as native_mod
+
+        return native_mod.build_sah_native(tris, leaf_size, max_leaf)
     t = tris.shape[0]
     if t == 0:
         raise ValueError("cannot build a BVH over zero triangles")
@@ -122,7 +129,8 @@ def sah_bvh_from_arrays(
     return assemble(arr, tris, order, tri_min, tri_max, prim_ids)
 
 
-def build_sah_bvh(scene_buffers, leaf_size: int = 8) -> BVH:
-    """Build from SceneBuffers (real triangles only), host numpy."""
+def build_sah_bvh(scene_buffers, leaf_size: int = 8,
+                  native: str = "auto") -> BVH:
+    """Build from SceneBuffers (real triangles only)."""
     return sah_bvh_from_arrays(host_triangles(scene_buffers),
-                               leaf_size=leaf_size)
+                               leaf_size=leaf_size, native=native)

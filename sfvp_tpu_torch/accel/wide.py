@@ -39,8 +39,8 @@ TAG_LEAF = 2.0
 LEAF_TRIS = 8
 TRI_STRIDE = 16
 WIDTH = 8
-# the numpy SAH build is used up to this many triangles, the LBVH beyond
-# (sfvp_tpu.accel.wide.build_wide_from_buffers without its native builder)
+# without the native builder the numpy SAH build is used up to this many
+# triangles, the LBVH beyond (sfvp_tpu.accel.wide.build_wide_from_buffers)
 SAH_MAX_TRIS = 200_000
 
 
@@ -367,11 +367,17 @@ def uv_array(scene_buffers) -> "np.ndarray | None":
 def binary_bvh(scene_buffers, native: str = "auto", builder: str = "auto"):
     """The binary BVH (leaf_size LEAF_TRIS) that build_wide collapses.
     builder: "sah" = binned-SAH binary tree (best trace quality); "lbvh" =
-    Morton build (fastest build). "auto" = SAH up to SAH_MAX_TRIS
-    triangles and LBVH beyond, the JAX package's choice when its native
-    builder is absent. ``native="require"`` raises (ROADMAP.md A.9)."""
+    Morton build (fastest build). "auto" = SAH whenever the native SAH
+    builder is present, else SAH up to SAH_MAX_TRIS triangles and LBVH
+    beyond: sfvp_tpu's rule (accel/wide.py:388-394), whatever ``native``
+    says, so both packages pick the same tree. ``native``:
+    lbvh.native_builder's, which builder builds it (``"never"``: NumPy)."""
     if builder == "auto":
-        builder = "sah" if scene_buffers.num_tris <= SAH_MAX_TRIS else "lbvh"
+        from .. import native as native_mod
+
+        sah = (native_mod.sah_available()
+               or scene_buffers.num_tris <= SAH_MAX_TRIS)
+        builder = "sah" if sah else "lbvh"
     if builder == "sah":
         from .lbvh import host_triangles
         from .sah import sah_bvh_from_arrays

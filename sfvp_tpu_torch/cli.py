@@ -15,11 +15,14 @@ Example:
         --sampling cosine --rr --spp 8 --adaptive 0.25 --steps 6
     python -m sfvp_tpu_torch.cli --scene sphere --scene-tris 100000 \
         --sampling cosine --rr --nee --mis --env-map sky.hdr --spp 8
+    python -m sfvp_tpu_torch.cli --obj glass.obj --lens-radius 0.05 \
+        --focus-dist 5 --sampling cosine --rr --out dof.png
 
-An OBJ with ``vt`` and ``map_Kd`` renders textured. Flags of features not
-ported yet (--lens-radius, --focus-dist, --dist) raise
-NotImplementedError; --env-map with --scene instanced raises ValueError,
-as in sfvp_tpu. With --adaptive, --log writes one JSONL record
+An OBJ with ``vt`` and ``map_Kd`` renders textured; an MTL's ``Pr`` with a
+nonzero ``Ks`` makes a GGX glossy face, ``illum`` 4 or more with ``Ni`` > 1
+a smooth dielectric, ``illum`` 3 with a nonzero ``Ks`` a mirror. --dist,
+not ported yet, raises NotImplementedError; --env-map with --scene
+instanced raises ValueError, as in sfvp_tpu. With --adaptive, --log writes one JSONL record
 a step (integrate/adaptive.py AdaptiveRenderer.run) and --frame-every is
 ignored, as in sfvp_tpu.
 """
@@ -81,16 +84,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--env-map", default=None,
                    help="equirect environment map (PNG/PPM/HDR) used as the "
                         "sky instead of the constant miss color")
-    # not ported yet: each raises NotImplementedError when used
-    p.add_argument("--lens-radius", type=float, default=0.0)
-    p.add_argument("--focus-dist", type=float, default=0.0)
+    p.add_argument("--lens-radius", type=float, default=0.0,
+                   help="thin-lens aperture radius (0 = pinhole)")
+    p.add_argument("--focus-dist", type=float, default=0.0,
+                   help="distance of the focal plane along the view axis "
+                        "(default with an open lens: the camera target)")
+    # not ported yet: raises NotImplementedError when used
     p.add_argument("--dist", action="store_true")
     return p
 
 
 _NOT_PORTED = {
-    "lens_radius": "thin-lens depth of field (ROADMAP.md A.12)",
-    "focus_dist": "thin-lens depth of field (ROADMAP.md A.12)",
     "dist": "multi-device rendering (ROADMAP.md A.17)",
 }
 
@@ -125,6 +129,8 @@ def main(argv=None) -> int:
         scene, cfg = procedural_scene(args.scene, args.scene_tris, cfg)
     if args.env_map:
         scene.env_map = args.env_map
+    if args.lens_radius > 0:
+        cfg = with_lens(cfg, args.lens_radius, args.focus_dist)
     if args.adaptive is not None:
         from .integrate.adaptive import AdaptiveRenderer
 
@@ -161,6 +167,20 @@ def main(argv=None) -> int:
         progress=not args.quiet,
     )
     return 0
+
+
+def with_lens(cfg: RenderConfig, lens_radius: float,
+              focus_dist: float) -> RenderConfig:
+    """``cfg`` with an open thin lens, applied after the scene's own view
+    as sfvp_tpu's CLI does (cli.py:148-170): a focal distance <= 0 means
+    the plane of the camera's target."""
+    focus = focus_dist
+    if focus <= 0.0:
+        focus = math.dist(cfg.camera.origin, cfg.camera.center)
+        print(f"--lens-radius given without --focus-dist; focusing at the "
+              f"camera target plane ({focus:.3g})", flush=True)
+    return dataclasses.replace(cfg, camera=dataclasses.replace(
+        cfg.camera, lens_radius=lens_radius, focus_dist=focus))
 
 
 def procedural_scene(name: str, n_tris: int, cfg: RenderConfig):

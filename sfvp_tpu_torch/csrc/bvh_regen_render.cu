@@ -2,9 +2,13 @@
 // BVH (K5) or over the two-level BVH of an instanced scene (K9).
 //
 // K5 replaces sfvp_tpu/kernels/megakernel_bvh.py, make_bvh_regen_render_step
-// (single-level kernel built in build_kernel, pallas_call at :2326), for
-// the slice the port runs: diffuse and mirror materials, uniform or cosine
-// sampling, Russian roulette with a roulette number drawn at every bounce
+// (single-level kernel built in build_kernel, pallas_call at :2326):
+// diffuse, mirror, GGX glossy and smooth dielectric materials decoded from
+// the leaf's packed material lane (megakernel_bvh.py:1388-1445,
+// :1895-2017, :2107-2170; wide_bvh.cuh slot_surface, common.cuh ggx_*,
+// dielectric_dir), the thin-lens camera (:411-420, :683-700), uniform or
+// cosine sampling, Russian roulette with a roulette number drawn at every
+// bounce
 // (megakernel_bvh.py:2173-2182), next-event estimation toward the area
 // lights with balance-heuristic MIS, whose shadow rays take the any-hit
 // walk of wide_bvh.cuh (the TPU kernel's second packet traversal per
@@ -27,8 +31,9 @@
 // kernel over the two-level walks of two_level.cuh, the closest hit shaded
 // from its world-space vertices (tl_surface) and the shadow rays through
 // the two-level any-hit walk. Lights and materials for NEE come from the
-// flattened scene's light table, as the TPU kernel's do. The TPU kernel's
-// appended identity instance row (megakernel_bvh.py:136-146) only spares
+// flattened scene's light table, as the TPU kernel's do; materials, the
+// thin lens and their shading are K5's. The TPU kernel's appended
+// identity instance row (megakernel_bvh.py:136-146) only spares
 // its vector selects; here a world-space entry takes the ray as it is.
 //
 // What bounds it on an H100: the traversal, as for K3 (dependent node and
@@ -84,7 +89,10 @@ struct TwoLevelWalk {
   }
 };
 
-template <class Walk, bool HAS_MIRRORS, bool NEE, bool IMG>
+// MAT (GGX or dielectric faces) and DOF (the thin lens) are compiled only
+// into the kernels of scenes and cameras that have them, as IMG is.
+template <class Walk, bool HAS_MIRRORS, bool NEE, bool IMG, bool MAT,
+          bool DOF>
 __global__ void __launch_bounds__(kBlock)
 bvh_regen_kernel(const Walk walk, const float* __restrict__ lights,
                  const Params p, float* __restrict__ colr,
@@ -97,7 +105,7 @@ bvh_regen_kernel(const Walk walk, const float* __restrict__ lights,
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
   int segs = 0;
   for (int s = 0; s < p.spp; ++s) {
-    Path q = camera_path(px, py, s, p);
+    Path q = camera_path<DOF>(px, py, s, p);
     for (int depth = 0; depth < p.max_depth; ++depth) {
       ++segs;
       float t;
@@ -106,7 +114,7 @@ bvh_regen_kernel(const Walk walk, const float* __restrict__ lights,
         add_miss<NEE, IMG>(p, q, cr, cg, cb);
         break;
       }
-      if (!shade_hit<HAS_MIRRORS, NEE, true, IMG>(
+      if (!shade_hit<HAS_MIRRORS, NEE, true, IMG, MAT>(
               p, lights, depth, t, f, q, cr, cg, cb,
               [&](float ox, float oy, float oz, float dx, float dy, float dz,
                   float smax) {
@@ -125,27 +133,42 @@ bvh_regen_kernel(const Walk walk, const float* __restrict__ lights,
 
 namespace {
 
-template <class Walk, bool HAS_MIRRORS, bool NEE, bool IMG>
+template <class Walk, bool HAS_MIRRORS, bool NEE, bool IMG, bool MAT,
+          bool DOF>
 int launch(const Walk& walk, const float* lights, const sfvp::Params* p,
            float* colr, float* colg, float* colb, int* segs,
            cudaStream_t st) {
   const int blocks = (p->npix + sfvp::kBlock - 1) / sfvp::kBlock;
-  sfvp::bvh_regen_kernel<Walk, HAS_MIRRORS, NEE, IMG>
+  sfvp::bvh_regen_kernel<Walk, HAS_MIRRORS, NEE, IMG, MAT, DOF>
       <<<blocks, sfvp::kBlock, 0, st>>>(walk, lights, *p, colr, colg, colb,
                                          segs);
   return static_cast<int>(cudaGetLastError());
 }
 
 // IMG: an environment map or textures, which only the single-level walk
-// takes (K9 refuses them until ROADMAP.md A.13b)
+// takes (K9 refuses them until ROADMAP.md A.13b). Scenes with GGX or
+// dielectric faces or an open lens take kernels with that code (MAT, DOF),
+// which check for mirrors at run time.
 template <class Walk, bool NEE, bool IMG>
 int launch_mirrors(const Walk& walk, const float* lights,
                    const sfvp::Params* p, int has_mirrors, float* colr,
                    float* colg, float* colb, int* segs, cudaStream_t st) {
-  return has_mirrors ? launch<Walk, true, NEE, IMG>(walk, lights, p, colr,
-                                                     colg, colb, segs, st)
-                     : launch<Walk, false, NEE, IMG>(walk, lights, p, colr,
-                                                      colg, colb, segs, st);
+  if (p->use_mat && p->use_dof)
+    return launch<Walk, true, NEE, IMG, true, true>(walk, lights, p, colr,
+                                                    colg, colb, segs, st);
+  if (p->use_mat)
+    return launch<Walk, true, NEE, IMG, true, false>(walk, lights, p, colr,
+                                                     colg, colb, segs, st);
+  if (p->use_dof)
+    return launch<Walk, true, NEE, IMG, false, true>(walk, lights, p, colr,
+                                                     colg, colb, segs, st);
+  return has_mirrors
+             ? launch<Walk, true, NEE, IMG, false, false>(walk, lights, p,
+                                                          colr, colg, colb,
+                                                          segs, st)
+             : launch<Walk, false, NEE, IMG, false, false>(walk, lights, p,
+                                                           colr, colg, colb,
+                                                           segs, st);
 }
 
 template <class Walk, bool CAN_IMG>

@@ -1,11 +1,13 @@
 // Device functions shared by the path-tracing kernels (regen_render.cu =
 // K1, wave_render.cu = K2, bvh_regen_render.cu = K5 and K9) and the
-// environment fetch (env_fetch.cu = P3, P4): bit-exact PCG, the camera ray,
-// Moller-Trumbore closest and any hit against a scene table in shared
-// memory, the bilinear fetch of a texture or of the equirect environment
-// map, the environment's importance sampling, and the shading of a hit
-// (emission, next-event estimation toward the area lights and the
-// environment, the next direction, roulette).
+// environment fetch (env_fetch.cu = P3, P4): bit-exact PCG, the camera ray
+// (through the thin lens when it is open), Moller-Trumbore closest and any
+// hit against a scene table in shared memory, the bilinear fetch of a
+// texture or of the equirect environment map, the environment's
+// importance sampling, and the shading of a hit (emission, next-event
+// estimation toward the area lights and the environment, the next
+// direction of a diffuse, mirror, GGX glossy or dielectric face,
+// roulette).
 //
 // 1/sqrt is 1.0f / sqrtf(x), two correctly rounded ops, never the
 // approximate rsqrtf (see utils/vec.py inv_sqrt). atan2f, acosf, sinf and
@@ -49,6 +51,12 @@ struct Params {
   const float *env_r, *env_g, *env_b, *env_cdf, *env_pdf;
   const float *tex_r, *tex_g, *tex_b;
   const int *tex_off, *tex_w, *tex_h;
+  // GGX glossy or dielectric faces in the scene (the kernels built with
+  // their shading, template flag MAT, take it); the thin lens (template
+  // flag DOF): its radius, focal distance and float32 frame (right, up,
+  // forward, each normalized; camera.lens_frame)
+  int use_mat, use_dof;
+  float lens_r, focus_d, lens_rn[3], lens_un[3], lens_fwd[3];
 };
 
 // A shadow ray stops float32(1 - 1e-3) of the way to its light sample
@@ -131,7 +139,12 @@ struct Path {
   bool count_emit;  // NEE: emission counts in full (camera ray, mirror)
 };
 
-// Seed a sample and shoot its camera ray (ref shaders/raygen.rgen:50-57).
+// Seed a sample and shoot its camera ray (ref shaders/raygen.rgen:50-57);
+// DOF: two more numbers move it through the thin lens
+// (camera.apply_thin_lens_soa: a uniform disk sample on the lens, re-aimed
+// at the pinhole ray's point on the focal plane; sfvp_tpu
+// megakernel_regen.py:232-246, :368).
+template <bool DOF = false>
 __device__ __forceinline__ Path camera_path(int px, int py, int sample,
                                             const Params& p) {
   Path q;
@@ -150,6 +163,33 @@ __device__ __forceinline__ Path camera_path(int px, int py, int sample,
   q.ox = p.cam_o[0];
   q.oy = p.cam_o[1];
   q.oz = p.cam_o[2];
+  if (DOF) {
+    const float rl1 = rand01(q.seed);
+    const float rl2 = rand01(q.seed);
+    const float rad = p.lens_r * sqrtf(fmaxf(rl1, 0.0f));
+    const float phi = p.two_pi * rl2;
+    const float lx = rad * cosf(phi);
+    const float ly = rad * sinf(phi);
+    // focus_d / cos as torch's scalar / tensor: its reciprocal, then times
+    const float t_focal =
+        (1.0f / fmaxf(q.dx * p.lens_fwd[0] + q.dy * p.lens_fwd[1] +
+                          q.dz * p.lens_fwd[2],
+                      1e-4f)) *
+        p.focus_d;
+    const float fx = q.ox + q.dx * t_focal;
+    const float fy = q.oy + q.dy * t_focal;
+    const float fz = q.oz + q.dz * t_focal;
+    q.ox = q.ox + lx * p.lens_rn[0] + ly * p.lens_un[0];
+    q.oy = q.oy + lx * p.lens_rn[1] + ly * p.lens_un[1];
+    q.oz = q.oz + lx * p.lens_rn[2] + ly * p.lens_un[2];
+    dx = fx - q.ox;
+    dy = fy - q.oy;
+    dz = fz - q.oz;
+    const float il = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
+    q.dx = dx * il;
+    q.dy = dy * il;
+    q.dz = dz * il;
+  }
   q.wr = q.wg = q.wb = 1.0f;
   q.pdf_prev = 0.0f;
   q.count_emit = true;
@@ -241,18 +281,213 @@ __device__ __forceinline__ bool brute_any_hit(const float* tab,
 // What the shading after a hit needs of the surface (ref
 // closesthit.rchit:43-65): the hit point, the geometric normal
 // -normalize(cross(e1, e2)), the albedo that diffuse sampling scales by
-// (times the map_Kd texel on a textured face), the emission, the mirror
-// tint and the material type (1 = mirror).
+// (times the map_Kd texel on a textured face), the emission, the Ks tint
+// of a mirror, GGX or dielectric face, the material type (1 mirror, 2 GGX,
+// 3 dielectric: an integer from the brute-force table, the packed lane
+// mtype + fraction of a wide tree's leaf) and the roughness or encoded IOR
+// (Ni - 1) / 4 of GGX and dielectric faces.
 struct Surface {
   float posx, posy, posz, nx, ny, nz;
   float dr, dg, db;
   float er, eg, eb;
   float sr, sg, sb;
-  float mtype;
+  float mtype, rough;
 };
 
+// The material classes, split as sfvp_tpu's kernels split the packed lane
+// (megakernel_bvh.py:1388-1400): a GGX lane holds at most 2.96 (roughness
+// clipped to 0.96, accel/wide.py), a dielectric's 3.0 and up, so the cut
+// is at 2.98, not 2.5.
 __device__ __forceinline__ bool is_mirror(float mtype) {
   return mtype > 0.5f && mtype < 1.5f;
+}
+__device__ __forceinline__ bool is_glossy(float mtype) {
+  return mtype > 1.5f && mtype < 2.98f;
+}
+__device__ __forceinline__ bool is_dielectric(float mtype) {
+  return mtype > 2.98f;
+}
+
+// ---- GGX glossy (sampling.py, integrate/wavefront.py ggx_*) ----
+//
+// Trowbridge-Reitz/GGX reflection with Smith height-correlated shadowing
+// and VNDF sampling (Heitz 2018), in the shading frame of the normal
+// flipped toward the incoming ray, the Ks tint as Schlick's F0: sfvp_tpu
+// wavefront.py:355-403, :566-588, megakernel_bvh.py:1402-1445. Each
+// expression keeps the twin's operation order.
+
+__device__ __forceinline__ float ggx_lambda(float cos_t, float alpha) {
+  const float c = fmaxf(fabsf(cos_t), 1e-6f);
+  const float c2 = c * c;
+  const float tan2 = fmaxf(1.0f - c2, 0.0f) / c2;
+  return 0.5f * (-1.0f + sqrtf(1.0f + alpha * alpha * tan2));
+}
+
+__device__ __forceinline__ float ggx_d(const Params& p, float cos_h,
+                                       float alpha) {
+  const float a2 = alpha * alpha;
+  const float c = fmaxf(cos_h, 0.0f);
+  const float denom = c * c * (a2 - 1.0f) + 1.0f;
+  return a2 * p.inv_pi / fmaxf(denom * denom, 1e-12f);
+}
+
+// G1(wo) D(h) / (4 cos_o): the solid-angle pdf of a VNDF-sampled direction.
+__device__ __forceinline__ float ggx_vndf_pdf(const Params& p, float cos_o,
+                                              float cos_h, float alpha) {
+  const float g1 = 1.0f / (1.0f + ggx_lambda(cos_o, alpha));
+  return g1 * ggx_d(p, cos_h, alpha) / fmaxf(4.0f * cos_o, 1e-6f);
+}
+
+// The frame of a GGX hit: n_g (the normal toward the incoming ray) with
+// its tangent basis (coordinate_system_soa), the view direction in it
+// (its z clamped at 1e-6), alpha = max(rough^2, 1e-4) and Lambda(wo).
+struct Ggx {
+  float tx, ty, tz, bx, by, bz, nx, ny, nz;
+  float wox, woy, woz, alpha, lam_o;
+};
+
+__device__ __forceinline__ Ggx ggx_frame(const Surface& s, const Path& q) {
+  Ggx g;
+  const bool flip = q.dx * s.nx + q.dy * s.ny + q.dz * s.nz > 0.0f;
+  g.nx = flip ? s.nx * -1.0f : s.nx;
+  g.ny = flip ? s.ny * -1.0f : s.ny;
+  g.nz = flip ? s.nz * -1.0f : s.nz;
+  const bool use_x = fabsf(g.nx) > fabsf(g.ny);
+  const float inv_a = 1.0f / sqrtf(g.nx * g.nx + g.nz * g.nz);
+  const float inv_b = 1.0f / sqrtf(g.ny * g.ny + g.nz * g.nz);
+  g.tx = use_x ? g.nz * inv_a : 0.0f;
+  g.ty = use_x ? 0.0f : -g.nz * inv_b;
+  g.tz = use_x ? -g.nx * inv_a : g.ny * inv_b;
+  g.bx = g.ny * g.tz - g.nz * g.ty;
+  g.by = g.nz * g.tx - g.nx * g.tz;
+  g.bz = g.nx * g.ty - g.ny * g.tx;
+  const float wx = q.dx * -1.0f, wy = q.dy * -1.0f, wz = q.dz * -1.0f;
+  g.woz = fmaxf(wx * g.nx + wy * g.ny + wz * g.nz, 1e-6f);
+  g.wox = wx * g.tx + wy * g.ty + wz * g.tz;
+  g.woy = wx * g.bx + wy * g.by + wz * g.bz;
+  g.alpha = fmaxf(s.rough * s.rough, 1e-4f);
+  g.lam_o = ggx_lambda(g.woz, g.alpha);
+  return g;
+}
+
+// Schlick's Fresnel of one channel, F0 the Ks tint.
+__device__ __forceinline__ float ggx_fresnel(float f0, float coh) {
+  const float m1 = 1.0f - coh;
+  float f5 = m1 * m1;
+  f5 = f5 * f5 * m1;
+  return f0 + (1.0f - f0) * f5;
+}
+
+// f_r (fr, fg, fb), the VNDF pdf and the cosine to n_g of the light
+// direction (wlx, wly, wlz) (integrate/wavefront.py ggx_eval).
+__device__ __forceinline__ void ggx_eval(const Params& p, const Ggx& g,
+                                         const Surface& s, float wlx,
+                                         float wly, float wlz, float& fr,
+                                         float& fg, float& fb, float& pdf,
+                                         float& cos_i) {
+  const float lx = wlx * g.tx + wly * g.ty + wlz * g.tz;
+  const float ly = wlx * g.bx + wly * g.by + wlz * g.bz;
+  cos_i = wlx * g.nx + wly * g.ny + wlz * g.nz;
+  float hx = g.wox + lx, hy = g.woy + ly, hz = g.woz + cos_i;
+  const float inv_h = 1.0f / sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-20f));
+  hx = hx * inv_h;
+  hy = hy * inv_h;
+  hz = hz * inv_h;
+  const float dgg = ggx_d(p, hz, g.alpha);
+  const float g2 = 1.0f / (1.0f + g.lam_o + ggx_lambda(cos_i, g.alpha));
+  const float coh = fmaxf(g.wox * hx + g.woy * hy + g.woz * hz, 1e-6f);
+  const float denom = fmaxf(4.0f * g.woz * fmaxf(cos_i, 1e-6f), 1e-6f);
+  fr = ggx_fresnel(s.sr, coh) * dgg * g2 / denom;
+  fg = ggx_fresnel(s.sg, coh) * dgg * g2 / denom;
+  fb = ggx_fresnel(s.sb, coh) * dgg * g2 / denom;
+  pdf = ggx_vndf_pdf(p, g.woz, hz, g.alpha);
+}
+
+// The GGX bounce from r1, r2 (the hemisphere sample's numbers): a VNDF
+// half-vector (sampling.py ggx_sample_vndf_local), the reflected direction
+// in world space (nd), its weight F G2 / G1(wo) (f), its pdf; false when
+// it lies below the surface, which absorbs the path.
+__device__ __forceinline__ bool ggx_bounce(const Params& p, const Ggx& g,
+                                           const Surface& s, float r1,
+                                           float r2, float& ndx, float& ndy,
+                                           float& ndz, float& fr, float& fg,
+                                           float& fb, float& pdf) {
+  float vx = g.alpha * g.wox, vy = g.alpha * g.woy, vz = g.woz;
+  const float inv_len = 1.0f / sqrtf(fmaxf(vx * vx + vy * vy + vz * vz, 1e-20f));
+  vx = vx * inv_len;
+  vy = vy * inv_len;
+  vz = vz * inv_len;
+  const float lensq = vx * vx + vy * vy;
+  const float inv_l = 1.0f / sqrtf(fmaxf(lensq, 1e-20f));
+  const bool ok = lensq > 1e-12f;
+  const float t1x = ok ? -vy * inv_l : 1.0f;
+  const float t1y = ok ? vx * inv_l : 0.0f;
+  const float t1z = 0.0f;
+  const float t2x = vy * t1z - vz * t1y;
+  const float t2y = vz * t1x - vx * t1z;
+  const float t2z = vx * t1y - vy * t1x;
+  const float rr = sqrtf(fmaxf(r1, 0.0f));
+  const float phi = p.two_pi * r2;
+  const float p1 = rr * cosf(phi);
+  float p2 = rr * sinf(phi);
+  const float sw = 0.5f * (1.0f + vz);
+  p2 = (1.0f - sw) * sqrtf(fmaxf(1.0f - p1 * p1, 0.0f)) + sw * p2;
+  const float p3 = sqrtf(fmaxf(1.0f - p1 * p1 - p2 * p2, 0.0f));
+  float hx = g.alpha * (t1x * p1 + t2x * p2 + vx * p3);
+  float hy = g.alpha * (t1y * p1 + t2y * p2 + vy * p3);
+  float hz = fmaxf(t1z * p1 + t2z * p2 + vz * p3, 1e-6f);
+  const float inv_h = 1.0f / sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-20f));
+  hx = hx * inv_h;
+  hy = hy * inv_h;
+  hz = hz * inv_h;
+  const float coh = fmaxf(g.wox * hx + g.woy * hy + g.woz * hz, 1e-6f);
+  const float k = 2.0f * coh;
+  const float wix = hx * k - g.wox, wiy = hy * k - g.woy, wiz = hz * k - g.woz;
+  ndx = g.tx * wix + g.bx * wiy + g.nx * wiz;
+  ndy = g.ty * wix + g.by * wiy + g.ny * wiz;
+  ndz = g.tz * wix + g.bz * wiy + g.nz * wiz;
+  const float g2_over_g1 =
+      (1.0f + g.lam_o) / (1.0f + g.lam_o + ggx_lambda(wiz, g.alpha));
+  fr = ggx_fresnel(s.sr, coh) * g2_over_g1;
+  fg = ggx_fresnel(s.sg, coh) * g2_over_g1;
+  fb = ggx_fresnel(s.sb, coh) * g2_over_g1;
+  pdf = ggx_vndf_pdf(p, g.woz, hz, g.alpha);
+  return wiz > 1e-5f;
+}
+
+// The smooth dielectric's next direction (sampling.py
+// dielectric_reflect_refract_soa; sfvp_tpu wavefront.py:606-625): Snell
+// with the exact unpolarized Fresnel split, reflection where it totally
+// reflects or r1 < F, the IOR 1 + 4 rough.
+__device__ __forceinline__ void dielectric_dir(const Surface& s,
+                                               const Path& q, float r1,
+                                               float& ndx, float& ndy,
+                                               float& ndz) {
+  const bool entering = q.dx * s.nx + q.dy * s.ny + q.dz * s.nz < 0.0f;
+  const float nx = entering ? s.nx : s.nx * -1.0f;
+  const float ny = entering ? s.ny : s.ny * -1.0f;
+  const float nz = entering ? s.nz : s.nz * -1.0f;
+  const float ior = 1.0f + 4.0f * s.rough;
+  const float eta = entering ? 1.0f / ior : ior;
+  const float dn = q.dx * nx + q.dy * ny + q.dz * nz;
+  const float cos_i = fminf(fmaxf(-dn, 0.0f), 1.0f);
+  const float sin2_t = eta * eta * fmaxf(1.0f - cos_i * cos_i, 0.0f);
+  const bool tir = sin2_t > 1.0f;
+  const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
+  const float rs = (eta * cos_i - cos_t) / fmaxf(eta * cos_i + cos_t, 1e-12f);
+  const float rp = (eta * cos_t - cos_i) / fmaxf(eta * cos_t + cos_i, 1e-12f);
+  const float fres = tir ? 1.0f : 0.5f * (rs * rs + rp * rp);
+  if (tir || r1 < fres) {
+    const float k = 2.0f * dn;
+    ndx = q.dx - nx * k;
+    ndy = q.dy - ny * k;
+    ndz = q.dz - nz * k;
+  } else {
+    const float k = eta * cos_i - cos_t;
+    ndx = q.dx * eta + nx * k;
+    ndy = q.dy * eta + ny * k;
+    ndz = q.dz * eta + nz * k;
+  }
 }
 
 // ---- textures and the environment map (scene/textures.py) ----
@@ -424,6 +659,7 @@ __device__ __forceinline__ Surface table_surface(const float* tab, int S,
   s.sg = tab[16 * S + k];
   s.sb = tab[17 * S + k];
   s.mtype = tab[18 * S + k];
+  s.rough = tab[19 * S + k];
   if (IMG && p.use_tex) {
     const float tu = tab[20 * S + k] * w + tab[22 * S + k] * u + tab[24 * S + k] * v;
     const float tv = tab[21 * S + k] * w + tab[23 * S + k] * u + tab[25 * S + k] * v;
@@ -440,62 +676,83 @@ __device__ __forceinline__ Surface table_surface(const float* tab, int S,
 // update the throughput, play roulette. Returns whether the path continues.
 // RR_EVERY_DEPTH: draw the roulette number at every depth (K1, K5 and the
 // wavefront integrator) or only from rr_start on (K2). NEE: record what
-// the next hit's emission weight needs, count_emit (after a mirror) and
-// the pdf of the sampled direction, taken before the mirror override
-// (megakernel_regen.py:993-1008).
-template <bool HAS_MIRRORS, bool RR_EVERY_DEPTH, bool NEE = false>
+// the next hit's emission weight needs, count_emit (after a mirror or a
+// dielectric) and the pdf of the sampled direction, taken before the
+// mirror override (megakernel_regen.py:993-1008). MAT: the kernel was
+// built for a scene with GGX or dielectric faces (template flag; their
+// code costs the other kernels registers): a GGX face takes the VNDF
+// bounce from the same r1, r2, and absorbs the path when it points below
+// the surface; a dielectric reflects or refracts by r1, tinted by Ks.
+template <bool HAS_MIRRORS, bool RR_EVERY_DEPTH, bool NEE = false,
+          bool MAT = false>
 __device__ __forceinline__ bool scatter(const Params& p, int depth,
                                         const Surface& s, Path& q) {
   const float nx = s.nx, ny = s.ny, nz = s.nz;
   // next direction, ref shaders/raygen.rgen:14-39 (+ cosine variant)
   const float r1 = rand01(q.seed);
   const float r2 = rand01(q.seed);
-  const bool use_x = fabsf(nx) > fabsf(ny);
-  const float inv_a = 1.0f / sqrtf(nx * nx + nz * nz);
-  const float inv_b = 1.0f / sqrtf(ny * ny + nz * nz);
-  const float tx = use_x ? nz * inv_a : 0.0f;
-  const float ty = use_x ? 0.0f : -nz * inv_b;
-  const float tz = use_x ? -nx * inv_a : ny * inv_b;
-  const float bx = ny * tz - nz * ty;
-  const float by = nz * tx - nx * tz;
-  const float bz = nx * ty - ny * tx;
-  float sq, lz;
-  if (p.uniform) {
-    sq = sqrtf(fmaxf(1.0f - r1 * r1, 0.0f));
-    lz = r1;
+  float ndx, ndy, ndz, fr, fg, fb, new_pdf = 0.0f;
+  bool mirror = false, diel = false;
+  if (MAT && is_glossy(s.mtype)) {
+    if (!ggx_bounce(p, ggx_frame(s, q), s, r1, r2, ndx, ndy, ndz, fr, fg,
+                    fb, new_pdf))
+      return false;
   } else {
-    sq = sqrtf(fmaxf(r1, 0.0f));
-    lz = sqrtf(fmaxf(1.0f - r1, 0.0f));
-  }
-  const float phi = p.two_pi * r2;
-  const float lx = cosf(phi) * sq;
-  const float ly = sinf(phi) * sq;
-  float ndx = tx * lx + bx * ly + nx * lz;
-  float ndy = ty * lx + by * ly + ny * lz;
-  float ndz = tz * lx + bz * ly + nz * lz;
-  float fr = s.dr, fg = s.dg, fb = s.db;
-  if (p.uniform) {
-    const float c = p.uniform_scale * (ndx * nx + ndy * ny + ndz * nz);
-    fr = fr * c;
-    fg = fg * c;
-    fb = fb * c;
-  }
-  float new_pdf = 0.0f;
-  if (NEE)
-    new_pdf = p.uniform ? p.uniform_pdf
-                        : fmaxf(ndx * nx + ndy * ny + ndz * nz, 0.0f) * p.inv_pi;
-  const bool mirror = HAS_MIRRORS && is_mirror(s.mtype);
-  if (HAS_MIRRORS) {
-    if (mirror) {
-      // perfect mirror about the normal flipped toward the incoming ray
-      const bool flip = q.dx * nx + q.dy * ny + q.dz * nz > 0.0f;
-      const float fx = flip ? nx * -1.0f : nx;
-      const float fy = flip ? ny * -1.0f : ny;
-      const float fz = flip ? nz * -1.0f : nz;
-      const float kk = 2.0f * (q.dx * fx + q.dy * fy + q.dz * fz);
-      ndx = q.dx - fx * kk;
-      ndy = q.dy - fy * kk;
-      ndz = q.dz - fz * kk;
+    const bool use_x = fabsf(nx) > fabsf(ny);
+    const float inv_a = 1.0f / sqrtf(nx * nx + nz * nz);
+    const float inv_b = 1.0f / sqrtf(ny * ny + nz * nz);
+    const float tx = use_x ? nz * inv_a : 0.0f;
+    const float ty = use_x ? 0.0f : -nz * inv_b;
+    const float tz = use_x ? -nx * inv_a : ny * inv_b;
+    const float bx = ny * tz - nz * ty;
+    const float by = nz * tx - nx * tz;
+    const float bz = nx * ty - ny * tx;
+    float sq, lz;
+    if (p.uniform) {
+      sq = sqrtf(fmaxf(1.0f - r1 * r1, 0.0f));
+      lz = r1;
+    } else {
+      sq = sqrtf(fmaxf(r1, 0.0f));
+      lz = sqrtf(fmaxf(1.0f - r1, 0.0f));
+    }
+    const float phi = p.two_pi * r2;
+    const float lx = cosf(phi) * sq;
+    const float ly = sinf(phi) * sq;
+    ndx = tx * lx + bx * ly + nx * lz;
+    ndy = ty * lx + by * ly + ny * lz;
+    ndz = tz * lx + bz * ly + nz * lz;
+    fr = s.dr;
+    fg = s.dg;
+    fb = s.db;
+    if (p.uniform) {
+      const float c = p.uniform_scale * (ndx * nx + ndy * ny + ndz * nz);
+      fr = fr * c;
+      fg = fg * c;
+      fb = fb * c;
+    }
+    if (NEE)
+      new_pdf = p.uniform ? p.uniform_pdf
+                          : fmaxf(ndx * nx + ndy * ny + ndz * nz, 0.0f) * p.inv_pi;
+    mirror = HAS_MIRRORS && is_mirror(s.mtype);
+    if (HAS_MIRRORS) {
+      if (mirror) {
+        // perfect mirror about the normal flipped toward the incoming ray
+        const bool flip = q.dx * nx + q.dy * ny + q.dz * nz > 0.0f;
+        const float fx = flip ? nx * -1.0f : nx;
+        const float fy = flip ? ny * -1.0f : ny;
+        const float fz = flip ? nz * -1.0f : nz;
+        const float kk = 2.0f * (q.dx * fx + q.dy * fy + q.dz * fz);
+        ndx = q.dx - fx * kk;
+        ndy = q.dy - fy * kk;
+        ndz = q.dz - fz * kk;
+        fr = s.sr;
+        fg = s.sg;
+        fb = s.sb;
+      }
+    }
+    diel = MAT && is_dielectric(s.mtype);
+    if (MAT && diel) {
+      dielectric_dir(s, q, r1, ndx, ndy, ndz);
       fr = s.sr;
       fg = s.sg;
       fb = s.sb;
@@ -524,7 +781,7 @@ __device__ __forceinline__ bool scatter(const Params& p, int depth,
   q.wg = q.wg * fg;
   q.wb = q.wb * fb;
   if (NEE) {
-    q.count_emit = mirror;
+    q.count_emit = mirror || diel;
     q.pdf_prev = new_pdf;
   }
   return true;
@@ -588,36 +845,61 @@ __device__ __forceinline__ int pick_light(const float* __restrict__ lights,
   return lo;
 }
 
+__device__ __forceinline__ float bsdf_pdf(const Params& p, float cos_s) {
+  return p.uniform ? p.uniform_pdf : fmaxf(cos_s, 0.0f) * p.inv_pi;
+}
+
 // A shadow ray of next-event estimation (``on`` false: none), with what
 // the light it tests adds when nothing blocks it: the factor g (geometry,
-// pdf and MIS weight) and, for an area light, its column of the light
-// table (null for the environment sample, whose radiance is fetched in
-// the ray's direction). The radiance is read after the shadow test, so
-// that little is live across it.
+// pdf and MIS weight), for an area light its column of the light table
+// (null for the environment sample, whose radiance is fetched in the
+// ray's direction), and from a GGX face (``glossy``) its f_r toward the
+// light (fr, fg, fb; a diffuse face's Kd / pi is read after the test). The
+// radiance is read after the shadow test, so that little is live across
+// it.
 struct ShadowRay {
   float ox, oy, oz, dx, dy, dz, smax, g;
   const float* lt;
-  bool on;
+  bool on, glossy;
+  float fr, fg, fb;
 };
 
-__device__ __forceinline__ float bsdf_pdf(const Params& p, float cos_s) {
-  return p.uniform ? p.uniform_pdf : fmaxf(cos_s, 0.0f) * p.inv_pi;
+// The brdf, cosine and bsdf pdf of a light direction at a hit: a diffuse
+// face's cos_s and sampling pdf, or on a GGX face (MAT) f_r, the cosine
+// to n_g and the VNDF pdf (integrate/wavefront.py light_bsdf).
+template <bool MAT>
+__device__ __forceinline__ float light_cos(const Params& p, const Surface& s,
+                                           const Path& q, float wlx,
+                                           float wly, float wlz,
+                                           ShadowRay& r, float& pdf_b) {
+  r.glossy = MAT && is_glossy(s.mtype);
+  if (MAT && r.glossy) {
+    float cos_i;
+    ggx_eval(p, ggx_frame(s, q), s, wlx, wly, wlz, r.fr, r.fg, r.fb, pdf_b,
+             cos_i);
+    return cos_i;
+  }
+  const float cos_s = wlx * s.nx + wly * s.ny + wlz * s.nz;
+  pdf_b = bsdf_pdf(p, cos_s);
+  return cos_s;
 }
 
 // The area-light sample at a hit (megakernel_regen.py:651-797,
 // megakernel_bvh.py:1824-1946, in their float order; integrate/wavefront.py
 // nee_direct with fused=True): draw its three numbers, pick a light of the
 // (16, L) table (rows v0 v1 v2 n Le xyz, cdf; read through L1), sample a
-// point on it; no ray from a mirror or toward a light behind the surface.
+// point on it; no ray from a mirror or dielectric (``spec``) or toward a
+// light behind the surface. MAT: GGX faces evaluate their brdf and pdf.
+template <bool MAT = false>
 __device__ __forceinline__ ShadowRay light_sample(
     const Params& p, const float* __restrict__ lights, const Surface& s,
-    bool mirror, Path& q) {
+    bool spec, Path& q) {
   ShadowRay r;
   r.on = false;
   const float r_sel = rand01(q.seed);
   const float rl1 = rand01(q.seed);
   const float rl2 = rand01(q.seed);
-  if (mirror) return r;
+  if (spec) return r;
   const int L = p.num_lights;
   const float* lt = lights + pick_light(lights, L, r_sel);
   const float su = sqrtf(fmaxf(rl1, 0.0f));
@@ -633,48 +915,67 @@ __device__ __forceinline__ ShadowRay light_sample(
   const float dist2 = fmaxf(tlx * tlx + tly * tly + tlz * tlz, 1e-12f);
   const float inv_dist = 1.0f / sqrtf(dist2);
   const float wlx = tlx * inv_dist, wly = tly * inv_dist, wlz = tlz * inv_dist;
-  const float cos_s = wlx * s.nx + wly * s.ny + wlz * s.nz;
+  float pdf_b;
+  const float cos_s = light_cos<MAT>(p, s, q, wlx, wly, wlz, r, pdf_b);
   if (!(cos_s > 0.0f)) return r;
   const float cos_l = fabsf(wlx * __ldg(lt + 9 * L) + wly * __ldg(lt + 10 * L) +
                             wlz * __ldg(lt + 11 * L));
   float g_pdf = cos_s * cos_l / dist2 * p.total_area;
   if (p.use_mis) {
     const float p_nee_sa = dist2 / (p.total_area * fmaxf(cos_l, 1e-6f));
-    g_pdf = g_pdf * (p_nee_sa / fmaxf(p_nee_sa + bsdf_pdf(p, cos_s), 1e-30f));
+    g_pdf = g_pdf * (p_nee_sa / fmaxf(p_nee_sa + pdf_b, 1e-30f));
   }
-  return ShadowRay{s.posx, s.posy, s.posz, wlx, wly, wlz,
-                   (1.0f / inv_dist) * kShadowScale, g_pdf, lt, true};
+  r.ox = s.posx;
+  r.oy = s.posy;
+  r.oz = s.posz;
+  r.dx = wlx;
+  r.dy = wly;
+  r.dz = wlz;
+  r.smax = (1.0f / inv_dist) * kShadowScale;
+  r.g = g_pdf;
+  r.lt = lt;
+  r.on = true;
+  return r;
 }
 
 // The environment sample at a hit (megakernel_regen.py:799-909;
 // integrate/wavefront.py env_nee_direct with fused=True): draw its three
 // numbers and a direction from the map's importance distribution
 // (env_sample); a shadow ray to t_max (1 - 1e-3), none from a mirror or
-// below the surface.
+// dielectric or below the surface. MAT: as light_sample's.
+template <bool MAT = false>
 __device__ __forceinline__ ShadowRay env_light_sample(const Params& p,
                                                       const Surface& s,
-                                                      bool mirror, Path& q) {
+                                                      bool spec, Path& q) {
   ShadowRay r;
   r.on = false;
   const float r_sel = rand01(q.seed);
   const float rl1 = rand01(q.seed);
   const float rl2 = rand01(q.seed);
-  if (mirror) return r;
-  float wlx, wly, wlz, pdf_sa;
+  if (spec) return r;
+  float wlx, wly, wlz, pdf_sa, pdf_b;
   env_sample(p, r_sel, rl1, rl2, wlx, wly, wlz, pdf_sa);
-  const float cos_s = wlx * s.nx + wly * s.ny + wlz * s.nz;
+  const float cos_s = light_cos<MAT>(p, s, q, wlx, wly, wlz, r, pdf_b);
   if (!(cos_s > 0.0f)) return r;
   float g_w = cos_s / fmaxf(pdf_sa, 1e-12f);
-  if (p.use_mis)
-    g_w = g_w * (pdf_sa / fmaxf(pdf_sa + bsdf_pdf(p, cos_s), 1e-30f));
-  return ShadowRay{s.posx, s.posy, s.posz, wlx, wly, wlz,
-                   p.t_max * kShadowScale, g_w, nullptr, true};
+  if (p.use_mis) g_w = g_w * (pdf_sa / fmaxf(pdf_sa + pdf_b, 1e-30f));
+  r.ox = s.posx;
+  r.oy = s.posy;
+  r.oz = s.posz;
+  r.dx = wlx;
+  r.dy = wly;
+  r.dz = wlz;
+  r.smax = p.t_max * kShadowScale;
+  r.g = g_w;
+  r.lt = nullptr;
+  r.on = true;
+  return r;
 }
 
 // Add what an unblocked shadow ray's light brings: w * brdf * Le * g, Le
 // the area light's emission or (IMG) the map's radiance in the ray's
-// direction.
-template <bool IMG>
+// direction, brdf Kd / pi or (MAT) a GGX face's f_r.
+template <bool IMG, bool MAT = false>
 __device__ __forceinline__ void add_light(const Params& p, const ShadowRay& r,
                                           bool blocked, const Surface& s,
                                           const Path& q, float& cr,
@@ -689,9 +990,19 @@ __device__ __forceinline__ void add_light(const Params& p, const ShadowRay& r,
   } else {
     env_lookup(p, r.dx, r.dy, r.dz, ler, leg, leb);
   }
-  cr = cr + q.wr * (s.dr * p.inv_pi) * ler * r.g;
-  cg = cg + q.wg * (s.dg * p.inv_pi) * leg * r.g;
-  cb = cb + q.wb * (s.db * p.inv_pi) * leb * r.g;
+  float br, bg, bb;
+  if (MAT && r.glossy) {
+    br = r.fr;
+    bg = r.fg;
+    bb = r.fb;
+  } else {
+    br = s.dr * p.inv_pi;
+    bg = s.dg * p.inv_pi;
+    bb = s.db * p.inv_pi;
+  }
+  cr = cr + q.wr * br * ler * r.g;
+  cg = cg + q.wg * bg * leg * r.g;
+  cb = cb + q.wb * bb * leb * r.g;
 }
 
 // A hit's (weighted) emission.
@@ -706,30 +1017,38 @@ __device__ __forceinline__ void add_emission(const Params& p, const Path& q,
   cb = cb + q.wb * s.eb * ew;
 }
 
+// Whether a hit takes no light sample: a mirror, or (MAT) a dielectric.
+template <bool HAS_MIRRORS, bool MAT>
+__device__ __forceinline__ bool is_specular(const Surface& s) {
+  return (HAS_MIRRORS && is_mirror(s.mtype)) ||
+         (MAT && is_dielectric(s.mtype));
+}
+
 // The first half of shading a hit at distance t, for a block that tests
 // its shadow rays together (K1's tiled kernel): add its (weighted)
 // emission, then under NEE draw the area-light sample and the environment
-// sample, in that order, as shadow rays sh[0] and sh[1].
-template <bool NEE, bool IMG>
+// sample, in that order, as shadow rays sh[0] and sh[1]; none from a
+// specular face (``spec``).
+template <bool NEE, bool IMG, bool MAT = false>
 __device__ __forceinline__ void shade_begin(const Params& p,
                                             const float* __restrict__ lights,
                                             float t, const Surface& s,
-                                            bool mirror, Path& q, float& cr,
+                                            bool spec, Path& q, float& cr,
                                             float& cg, float& cb,
                                             ShadowRay sh[2]) {
   add_emission<NEE>(p, q, t, s, cr, cg, cb);
   sh[0].on = sh[1].on = false;
-  if (NEE && p.use_nee) sh[0] = light_sample(p, lights, s, mirror, q);
+  if (NEE && p.use_nee) sh[0] = light_sample<MAT>(p, lights, s, spec, q);
   if (NEE && IMG && p.use_env_nee)
-    sh[1] = env_light_sample(p, s, mirror, q);
+    sh[1] = env_light_sample<MAT>(p, s, spec, q);
 }
 
 // A hit at distance t: add its (weighted) emission, then with NEE each
 // light sample in turn, drawn, tested by ``occluded(o, d, smax)`` and
-// added, then scatter. The shading K1 and K5 share. Returns whether the
-// path continues.
+// added, then scatter. The shading K1, K5 and K9 share. Returns whether
+// the path continues. MAT: the GGX and dielectric shading (scatter).
 template <bool HAS_MIRRORS, bool NEE, bool RR_EVERY_DEPTH, bool IMG,
-          class Occluded>
+          bool MAT, class Occluded>
 __device__ __forceinline__ bool shade_hit(const Params& p,
                                           const float* __restrict__ lights,
                                           int depth, float t,
@@ -737,25 +1056,27 @@ __device__ __forceinline__ bool shade_hit(const Params& p,
                                           float& cr, float& cg, float& cb,
                                           const Occluded& occluded) {
   add_emission<NEE>(p, q, t, s, cr, cg, cb);
-  const bool mirror = HAS_MIRRORS && is_mirror(s.mtype);
+  const bool spec = is_specular<HAS_MIRRORS, MAT>(s);
   if (NEE && p.use_nee) {
-    const ShadowRay r = light_sample(p, lights, s, mirror, q);
-    add_light<IMG>(p, r, r.on && occluded(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
-                                     r.smax), s, q, cr, cg, cb);
+    const ShadowRay r = light_sample<MAT>(p, lights, s, spec, q);
+    add_light<IMG, MAT>(p, r, r.on && occluded(r.ox, r.oy, r.oz, r.dx, r.dy,
+                                               r.dz, r.smax), s, q, cr, cg,
+                        cb);
   }
   if (NEE && IMG && p.use_env_nee) {
-    const ShadowRay r = env_light_sample(p, s, mirror, q);
-    add_light<IMG>(p, r, r.on && occluded(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
-                                     r.smax), s, q, cr, cg, cb);
+    const ShadowRay r = env_light_sample<MAT>(p, s, spec, q);
+    add_light<IMG, MAT>(p, r, r.on && occluded(r.ox, r.oy, r.oz, r.dx, r.dy,
+                                               r.dz, r.smax), s, q, cr, cg,
+                        cb);
   }
-  return scatter<HAS_MIRRORS, RR_EVERY_DEPTH, NEE>(p, depth, s, q);
+  return scatter<HAS_MIRRORS, RR_EVERY_DEPTH, NEE, MAT>(p, depth, s, q);
 }
 
 // One path segment against the brute-force table in shared memory: trace,
 // add its radiance into (cr, cg, cb), then shade; with NEE its shadow rays
 // test the table too. Returns whether the path continues.
 template <bool HAS_MIRRORS, bool RR_EVERY_DEPTH, bool NEE = false,
-          bool IMG = false>
+          bool IMG = false, bool MAT = false>
 __device__ __forceinline__ bool path_segment(const float* tab, const Params& p,
                                              int depth, Path& q, float& cr,
                                              float& cg, float& cb,
@@ -768,7 +1089,7 @@ __device__ __forceinline__ bool path_segment(const float* tab, const Params& p,
   }
   // hit shading, ref shaders/closesthit.rchit:43-65
   const Surface s = table_surface<IMG>(tab, p.num_tris, k, u, v, p);
-  return shade_hit<HAS_MIRRORS, NEE, RR_EVERY_DEPTH, IMG>(
+  return shade_hit<HAS_MIRRORS, NEE, RR_EVERY_DEPTH, IMG, MAT>(
       p, lights, depth, t, s, q, cr, cg, cb,
       [&](float ox, float oy, float oz, float dx, float dy, float dz,
           float smax) {

@@ -1,10 +1,13 @@
 // K1: brute-force path tracer with in-thread sample regeneration.
 //
 // Replaces sfvp_tpu/kernels/megakernel_regen.py, make_regen_render_step
-// (kernel body in build_kernel, pallas_call at :1137), for the slice the
-// port runs: diffuse and mirror materials, uniform or cosine sampling,
-// Russian roulette, next-event estimation toward the area lights with
-// balance-heuristic MIS, an equirect environment sky with its own
+// (kernel body in build_kernel, pallas_call at :1137): diffuse, mirror,
+// GGX glossy and smooth dielectric materials (megakernel_regen.py:497-540,
+// :723-781, :839-889, :976-1044; common.cuh ggx_*, dielectric_dir), the
+// thin-lens camera (:232-246, :368; camera_path<DOF>), uniform or cosine
+// sampling, Russian roulette, next-event estimation toward the area
+// lights with balance-heuristic MIS (a GGX face evaluating its brdf and
+// pdf toward the light), an equirect environment sky with its own
 // importance-sampled NEE (alone or beside the area lights), and map_Kd
 // textures (env/tex at megakernel_regen.py:144-218; the TPU's one-hot MXU
 // fetch, atlas gate and deferred env records have no counterpart: the
@@ -44,7 +47,10 @@
 
 namespace sfvp {
 
-template <bool HAS_MIRRORS, bool NEE, bool IMG>
+// MAT: GGX or dielectric faces, DOF: the thin lens; each compiled only into
+// the kernels of scenes and cameras that have them (their code costs the
+// others registers and time, as the environment's did: PERF.md §6).
+template <bool HAS_MIRRORS, bool NEE, bool IMG, bool MAT, bool DOF>
 __global__ void __launch_bounds__(kBlock)
 regen_kernel(const float* __restrict__ table,
              const float* __restrict__ lights, const Params p,
@@ -60,11 +66,11 @@ regen_kernel(const float* __restrict__ table,
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
   int segs = 0;
   for (int s = 0; s < p.spp; ++s) {
-    Path q = camera_path(px, py, s, p);
+    Path q = camera_path<DOF>(px, py, s, p);
     for (int depth = 0; depth < p.max_depth; ++depth) {
       ++segs;
-      if (!path_segment<HAS_MIRRORS, true, NEE, IMG>(tab, p, depth, q, cr, cg,
-                                                     cb, lights))
+      if (!path_segment<HAS_MIRRORS, true, NEE, IMG, MAT>(tab, p, depth, q,
+                                                          cr, cg, cb, lights))
         break;
     }
   }
@@ -77,7 +83,7 @@ regen_kernel(const float* __restrict__ table,
 // The same paths over a table staged through shared memory in tiles: the
 // block advances one segment of every thread's current sample per round,
 // a thread whose sample ends taking its next, until no thread has one.
-template <bool HAS_MIRRORS, bool NEE, bool IMG>
+template <bool HAS_MIRRORS, bool NEE, bool IMG, bool MAT, bool DOF>
 __global__ void __launch_bounds__(kBlock)
 regen_tiled_kernel(const float* __restrict__ table,
                    const float* __restrict__ lights, const Params p,
@@ -92,7 +98,7 @@ regen_tiled_kernel(const float* __restrict__ table,
   int segs = 0, s = 0, depth = 0;
   bool live = real && p.spp > 0 && p.max_depth > 0;
   Path q;
-  if (live) q = camera_path(px, py, 0, p);
+  if (live) q = camera_path<DOF>(px, py, 0, p);
   while (__syncthreads_or(live)) {
     float t, u, v;
     const int k = tiled_closest(tile, table, p, live, q, t, u, v);
@@ -106,25 +112,25 @@ regen_tiled_kernel(const float* __restrict__ table,
         add_miss<NEE, IMG>(p, q, cr, cg, cb);
       } else {
         f = table_surface<IMG>(table, p.tp, k, u, v, p);
-        shade_begin<NEE, IMG>(p, lights, t, f,
-                              HAS_MIRRORS && is_mirror(f.mtype), q, cr, cg,
-                              cb, sh);
+        shade_begin<NEE, IMG, MAT>(p, lights, t, f,
+                                   is_specular<HAS_MIRRORS, MAT>(f), q, cr,
+                                   cg, cb, sh);
       }
     }
     bool blocked[2];
     if (NEE) tiled_any_hit(tile, table, p, sh, blocked);
     if (live && k >= 0) {
       if (NEE) {
-        add_light<IMG>(p, sh[0], blocked[0], f, q, cr, cg, cb);
-        add_light<IMG>(p, sh[1], blocked[1], f, q, cr, cg, cb);
+        add_light<IMG, MAT>(p, sh[0], blocked[0], f, q, cr, cg, cb);
+        add_light<IMG, MAT>(p, sh[1], blocked[1], f, q, cr, cg, cb);
       }
-      cont = scatter<HAS_MIRRORS, true, NEE>(p, depth, f, q);
+      cont = scatter<HAS_MIRRORS, true, NEE, MAT>(p, depth, f, q);
     }
     if (live) {
       if (cont && ++depth < p.max_depth) continue;
       depth = 0;
       if (++s < p.spp)
-        q = camera_path(px, py, s, p);
+        q = camera_path<DOF>(px, py, s, p);
       else
         live = false;
     }
@@ -141,13 +147,14 @@ regen_tiled_kernel(const float* __restrict__ table,
 
 namespace {
 
-template <bool HAS_MIRRORS, bool NEE, bool IMG>
+template <bool HAS_MIRRORS, bool NEE, bool IMG, bool MAT, bool DOF>
 int launch(const float* table, const float* lights, const sfvp::Params* p,
            size_t smem, float* colr, float* colg, float* colb, int* segs,
            cudaStream_t st) {
   const int blocks = (p->npix + sfvp::kBlock - 1) / sfvp::kBlock;
-  auto kernel = p->tile ? sfvp::regen_tiled_kernel<HAS_MIRRORS, NEE, IMG>
-                        : sfvp::regen_kernel<HAS_MIRRORS, NEE, IMG>;
+  auto kernel =
+      p->tile ? sfvp::regen_tiled_kernel<HAS_MIRRORS, NEE, IMG, MAT, DOF>
+              : sfvp::regen_kernel<HAS_MIRRORS, NEE, IMG, MAT, DOF>;
   // past the default 48 KB of shared memory a block opts in
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -157,15 +164,36 @@ int launch(const float* table, const float* lights, const sfvp::Params* p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The scenes with GGX or dielectric faces or an open lens take kernels
+// with their code (MAT, DOF), which check for mirrors at run time; the
+// others, the kernels without it.
+template <bool HAS_MIRRORS, bool NEE, bool IMG>
+int launch_ext(const float* table, const float* lights,
+               const sfvp::Params* p, size_t smem, float* colr, float* colg,
+               float* colb, int* segs, cudaStream_t st) {
+  if (p->use_mat && p->use_dof)
+    return launch<true, NEE, IMG, true, true>(table, lights, p, smem, colr,
+                                              colg, colb, segs, st);
+  if (p->use_mat)
+    return launch<true, NEE, IMG, true, false>(table, lights, p, smem, colr,
+                                               colg, colb, segs, st);
+  if (p->use_dof)
+    return launch<true, NEE, IMG, false, true>(table, lights, p, smem, colr,
+                                               colg, colb, segs, st);
+  return launch<HAS_MIRRORS, NEE, IMG, false, false>(table, lights, p, smem,
+                                                     colr, colg, colb, segs,
+                                                     st);
+}
+
 template <bool HAS_MIRRORS, bool NEE>
 int launch_images(const float* table, const float* lights,
                   const sfvp::Params* p, size_t smem, float* colr,
                   float* colg, float* colb, int* segs, cudaStream_t st) {
   return p->use_env || p->use_tex
-             ? launch<HAS_MIRRORS, NEE, true>(table, lights, p, smem, colr,
-                                              colg, colb, segs, st)
-             : launch<HAS_MIRRORS, NEE, false>(table, lights, p, smem, colr,
-                                               colg, colb, segs, st);
+             ? launch_ext<HAS_MIRRORS, NEE, true>(table, lights, p, smem,
+                                                  colr, colg, colb, segs, st)
+             : launch_ext<HAS_MIRRORS, NEE, false>(table, lights, p, smem,
+                                                   colr, colg, colb, segs, st);
 }
 
 }  // namespace

@@ -265,8 +265,9 @@ static __device__ __noinline__ bool wide_any_hit(const Wide& w, float ox,
 // The shading data of a hit on the triangle of slot s whose (world-space)
 // vertices are p: position from the barycentrics, normal -cross(e1, e2) /
 // |cross| (1/sqrt of the squared length clamped at 1e-30, as sfvp_tpu's
-// _shade_from_payload), the albedo lanes as both diffuse albedo and mirror
-// tint, the emission, the packed material type.
+// _shade_from_payload), the albedo lanes as both diffuse albedo and
+// specular tint, the emission, the packed material lane (mtype + roughness
+// or encoded IOR: its fraction is the rough field).
 __device__ __forceinline__ Surface slot_surface(const float* s,
                                                 const float p[9], float u,
                                                 float v) {
@@ -291,6 +292,7 @@ __device__ __forceinline__ Surface slot_surface(const float* s,
   f.eg = __ldg(s + 13);
   f.eb = __ldg(s + 14);
   f.mtype = __ldg(s + 15);
+  f.rough = f.mtype - floorf(f.mtype);
   return f;
 }
 

@@ -7,9 +7,10 @@ instanced routes of select_instanced_render_step (dispatch.py:373-531):
   - brute (``traversal="brute"``, or "auto" up to brute_force_max_tris
     triangles): K1 (kernels/megakernel_regen.py) by default, K2
     (kernels/megakernel.py) with ``megakernel_regen=False``; K2 has no
-    next-event estimation, so with ``cfg.use_nee`` the eager wavefront
-    integrator (integrate/wavefront.py, no kernel) takes its place, as
-    sfvp_tpu's jnp wavefront does (dispatch.py:245-256);
+    next-event estimation, GGX, dielectric or thin lens, so with any of
+    them the eager wavefront integrator (integrate/wavefront.py, no
+    kernel) takes its place, as sfvp_tpu's jnp wavefront does
+    (dispatch.py:242-256, ``needs_eager_loop``);
   - bvh (``traversal="bvh"``, or "auto" beyond): the wide BVH
     (accel/wide.py) traced by K5 (kernels/megakernel_bvh.py) by default,
     or with ``megakernel_regen=False`` by the wavefront loop
@@ -26,6 +27,11 @@ instanced routes of select_instanced_render_step (dispatch.py:373-531):
     over the two-level payload trace K7 and, with ``cfg.use_nee``, the
     two-level any-hit trace K8 (kernels/bvh_tlas.py); materials and
     lights come from the flattened scene's buffers.
+
+Every material (mirror, GGX glossy, smooth dielectric) and the thin lens
+run on every route: inside K1, K5 and K9, and in the wavefront loop over
+K3, K6 and K7, whose payload carries the packed material lane; the
+instanced routes take them with no gate of their own.
 
 Environment maps (the sky of a miss, and under ``cfg.use_nee`` its
 importance-sampled NEE) and map_Kd textures run on every single-level
@@ -71,7 +77,7 @@ import sys
 from typing import Callable, Optional
 
 from .config import RenderConfig
-from .integrate.wavefront import require_slice, sort_rays
+from .integrate.wavefront import material_flags, require_slice, sort_rays
 
 
 def _dbg(choice: str, **why) -> None:
@@ -182,7 +188,7 @@ def select_render_step(cfg: RenderConfig, buffers,
 
         _dbg("megakernel_regen(brute)", tris=t, device=dev)
         return make_regen_render_step(cfg, buffers, global_shape=global_shape)
-    if cfg.use_nee or buffers.env is not None or buffers.has_textures:
+    if needs_eager_loop(cfg, buffers):
         from .integrate.wavefront import make_render_step
 
         _dbg("wavefront(brute)", tris=t, device=dev)
@@ -191,6 +197,16 @@ def select_render_step(cfg: RenderConfig, buffers,
 
     _dbg("megakernel(chunked parity)", tris=t, device=dev)
     return make_wave_render_step(cfg, buffers, global_shape=global_shape)
+
+
+def needs_eager_loop(cfg: RenderConfig, buffers) -> bool:
+    """Whether brute force with ``megakernel_regen=False`` takes the eager
+    wavefront loop instead of K2, which has none of these: NEE, an
+    environment map, textures, GGX or dielectric faces, an open lens
+    (sfvp_tpu dispatch.py:242-256)."""
+    return (cfg.use_nee or buffers.env is not None or buffers.has_textures
+            or cfg.camera.lens_radius > 0.0
+            or any(material_flags(buffers).values()))
 
 
 def require_single_level_images(buffers) -> None:

@@ -30,14 +30,14 @@ Parity-mode semantics preserved exactly (ref shaders/raygen.rgen:41-91):
     -normalize(cross(e01, e02)) (ref shaders/closesthit.rchit:43-57)
   - progressive accumulation new = (color + old*frame)/(frame+1), in f32
 
-The subset is diffuse and mirror materials, uniform and cosine sampling,
-Russian roulette, next-event estimation toward area lights with
-balance-heuristic MIS (integrate/lights.py), map_Kd textures and an
-equirect environment sky with its own importance-sampled NEE
-(scene/textures.py, lights.py EnvDistribution; sfvp_tpu wavefront.py
-:105-114, :168-193, :412-453, :515-536), over brute force or the wide
-BVH. Everything else raises NotImplementedError in ``require_slice`` and
-never falls back.
+It runs every material of sfvp_tpu's (diffuse, mirror, GGX glossy with
+VNDF sampling and the smooth dielectric; its wavefront.py:355-645), the
+thin-lens camera (:670), uniform and cosine sampling, Russian roulette,
+next-event estimation toward area lights with balance-heuristic MIS
+(integrate/lights.py), map_Kd textures and an equirect environment sky
+with its own importance-sampled NEE (scene/textures.py, lights.py
+EnvDistribution; sfvp_tpu wavefront.py :105-114, :168-193, :412-453,
+:515-536), over brute force or the wide BVH.
 """
 
 from __future__ import annotations
@@ -48,13 +48,19 @@ import numpy as np
 import torch
 
 from .. import rng
-from ..camera import generate_rays_soa
+from ..camera import apply_thin_lens_soa, generate_rays_soa, lens_frame
 from ..config import RenderConfig
 from ..kernels.intersect import trace_brute
 from ..scene.textures import sample_bilinear, sample_environment
 from ..sampling import (
     INV_PI,
     TWO_PI,
+    coordinate_system_soa,
+    dielectric_reflect_refract_soa,
+    ggx_d,
+    ggx_lambda,
+    ggx_sample_vndf_local,
+    ggx_vndf_pdf,
     sample_direction_cosine_soa,
     sample_direction_uniform_soa,
 )
@@ -100,17 +106,11 @@ def init_state(height: int, width: int, device) -> RenderState:
 
 
 def require_slice(cfg: RenderConfig, scene) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item that brings it,
-    for any feature this package does not run yet."""
-    todo = []
+    """Raise ValueError for a config no route can render: an unknown
+    sampling or traversal, a chunk that does not divide spp, an open lens
+    without a focal plane in front of it."""
     if cfg.camera.lens_radius > 0.0:
-        todo.append("thin-lens depth of field (ROADMAP.md A.12)")
-    mt = scene.mtype[: scene.num_tris].cpu().numpy()
-    if np.any(mt >= 2):
-        todo.append("GGX glossy and dielectric materials (ROADMAP.md A.12)")
-    if todo:
-        raise NotImplementedError(
-            "not ported to sfvp_tpu_torch yet: " + "; ".join(todo))
+        lens_frame(cfg.camera)  # raises when focus_dist <= 0
     if cfg.sampling not in ("uniform", "cosine"):
         raise ValueError(f"unknown sampling {cfg.sampling!r}")
     if cfg.traversal not in ("auto", "brute", "bvh"):
@@ -122,9 +122,112 @@ def has_mirror_faces(scene) -> bool:
     return bool((scene.mtype[: scene.num_tris] == 1).any())
 
 
+def material_flags(scene) -> dict:
+    """Which of the materials past diffuse and mirror the scene has, as the
+    ``has_glossy`` and ``has_diel`` keywords of trace_wave and the fused
+    kernels' wrappers: code for a material is traced (and in the kernels
+    compiled) only for a scene that has it, as sfvp_tpu's has_glossy and
+    has_diel (its dispatch.py:174-175)."""
+    mt = scene.mtype[: scene.num_tris]
+    return {"has_glossy": bool((mt == 2).any()),
+            "has_diel": bool((mt == 3).any())}
+
+
+def count_materials(counts: dict, mtype, hit) -> None:
+    """Add the hits (mask ``hit``) on GGX and dielectric faces (``mtype``
+    2 and 3) into ``counts`` ("glossy_hits", "diel_hits"): the twins'
+    count of the material work of their kernels' bounds."""
+    for key, m in (("glossy_hits", 2), ("diel_hits", 3)):
+        counts[key] = counts.get(key, 0) + int(((mtype == m) & hit).sum())
+
+
+class GgxFrame(NamedTuple):
+    """The shading frame of a GGX hit (sfvp_tpu wavefront.py:355-403): the
+    normal flipped toward the incoming ray ``n_g`` with its tangent basis,
+    the view direction in it ``wo_l`` (its z clamped at 1e-6), alpha =
+    max(rough^2, 1e-4), Smith's Lambda of the view direction, and the Ks
+    tint that is the Fresnel F0."""
+    tng: tuple
+    btg: tuple
+    n_g: tuple
+    wo_l: tuple
+    alpha: torch.Tensor
+    lam_o: torch.Tensor
+    spec: tuple
+
+
+def ggx_frame(d, normal, rough, spec) -> GgxFrame:
+    wo = vec.scale(d, -1.0)
+    n_g = vec.where(vec.dot(d, normal) > 0, vec.scale(normal, -1.0), normal)
+    tng, btg = coordinate_system_soa(n_g)
+    woz = torch.clamp_min(vec.dot(wo, n_g), 1e-6)
+    wo_l = (vec.dot(wo, tng), vec.dot(wo, btg), woz)
+    alpha = torch.clamp_min(rough * rough, 1e-4)
+    return GgxFrame(tng, btg, n_g, wo_l, alpha, ggx_lambda(woz, alpha), spec)
+
+
+def ggx_fresnel(spec, coh):
+    """Schlick's Fresnel with the Ks tint as F0."""
+    m1 = 1.0 - coh
+    f5 = m1 * m1
+    f5 = f5 * f5 * m1
+    return tuple(s + (1.0 - s) * f5 for s in spec)
+
+
+def ggx_eval(g: GgxFrame, wl):
+    """(f_r per channel, the VNDF pdf, cos of the light direction to n_g)
+    of the light direction ``wl`` (sfvp_tpu wavefront.py:389-403)."""
+    wl_l = (vec.dot(wl, g.tng), vec.dot(wl, g.btg), vec.dot(wl, g.n_g))
+    cos_i = wl_l[2]
+    woz = g.wo_l[2]
+    h = vec.add(g.wo_l, wl_l)
+    h = vec.scale(h, vec.inv_sqrt(torch.clamp_min(vec.dot(h, h), 1e-20)))
+    dgg = ggx_d(h[2], g.alpha)
+    g2 = 1.0 / (1.0 + g.lam_o + ggx_lambda(cos_i, g.alpha))
+    fr = ggx_fresnel(g.spec, torch.clamp_min(vec.dot(g.wo_l, h), 1e-6))
+    denom = torch.clamp_min(4.0 * woz * torch.clamp_min(cos_i, 1e-6), 1e-6)
+    f = tuple(fc * dgg * g2 / denom for fc in fr)
+    return f, ggx_vndf_pdf(woz, h[2], g.alpha), cos_i
+
+
+def ggx_bounce(g: GgxFrame, r1, r2):
+    """The GGX bounce (sfvp_tpu wavefront.py:566-588): a VNDF half-vector
+    from the same r1, r2 as the hemisphere sample, the reflected direction
+    in world space, its weight F * G2 / G1(wo), whether it lies above the
+    surface (z > 1e-5; below, the path is absorbed) and the half-vector's
+    z for its pdf."""
+    h_l = ggx_sample_vndf_local(r1, r2, g.wo_l, g.alpha)
+    coh = torch.clamp_min(vec.dot(g.wo_l, h_l), 1e-6)
+    wi_l = vec.sub(vec.scale(h_l, 2.0 * coh), g.wo_l)
+    wi = vec.add(vec.add(vec.scale(g.tng, wi_l[0]), vec.scale(g.btg, wi_l[1])),
+                 vec.scale(g.n_g, wi_l[2]))
+    g2_over_g1 = (1.0 + g.lam_o) / (1.0 + g.lam_o
+                                    + ggx_lambda(wi_l[2], g.alpha))
+    return (wi, vec.scale(ggx_fresnel(g.spec, coh), g2_over_g1),
+            wi_l[2] > 1e-5, h_l[2])
+
+
+def light_bsdf(wl, normal, diffuse, uniform: bool, ggx, is_glossy):
+    """(brdf per channel, cos to the shading normal, bsdf pdf) of a light
+    direction: Kd/pi, cos_s and the diffuse sampling pdf, or on the GGX
+    lanes (``ggx`` a GgxFrame, ``is_glossy`` their mask) f_r, cos to n_g
+    and the VNDF pdf (sfvp_tpu wavefront.py:484-488, :499-504)."""
+    cos_s = vec.dot(wl, normal)
+    brdf = vec.scale(diffuse, INV_PI)
+    if ggx is None:
+        return brdf, cos_s, bsdf_pdf(uniform, cos_s)
+    f_g, pdf_g, cos_i = ggx_eval(ggx, wl)
+    cos_s = torch.where(is_glossy, cos_i, cos_s)
+    return (vec.where(is_glossy, f_g, brdf), cos_s,
+            torch.where(is_glossy, pdf_g, bsdf_pdf(uniform, cos_s)))
+
+
 def shade_inputs(scene, hit):
     """Gather per-hit shading data (SoA), mirroring the closest-hit shader
-    (ref shaders/closesthit.rchit:50-65) plus the mirror extension."""
+    (ref shaders/closesthit.rchit:50-65) plus the material extensions:
+    (position, normal, diffuse, emission, specular, mtype, rough), rough
+    the GGX roughness (mtype 2) or the encoded IOR (Ni - 1) / 4 (mtype
+    3)."""
     prim = torch.clamp_min(hit.prim, 0)
     p0 = (scene.v0x[prim], scene.v0y[prim], scene.v0z[prim])
     p1 = (scene.v1x[prim], scene.v1y[prim], scene.v1z[prim])
@@ -148,18 +251,24 @@ def shade_inputs(scene, hit):
                  + scene.v2t[prim] * hit.v)
         texc = sample_bilinear(scene.textures, scene.tex[prim], u_hit, v_hit)
         diffuse = vec.mul(diffuse, texc)
-    return position, normal, diffuse, emission, specular, scene.mtype[prim]
+    return (position, normal, diffuse, emission, specular, scene.mtype[prim],
+            scene.rough[prim])
 
 
 def shade_from_payload(pay, textures=None):
     """Shading inputs from a payload trace (kernels/bvh_packet.py), as
     sfvp_tpu's _shade_from_payload (wavefront.py:258-290), with 1/sqrt as
     two correctly rounded ops where it calls rsqrt. The wide layout keeps
-    Ks in the albedo lanes of mirrors and packs mtype + roughness in one
-    lane (accel/wide.py). With ``textures`` and a textured payload, the
-    albedo is modulated by the bilinear fetch at the payload's (texu,
-    texv, texid); the mirror tint stays as it is. Returns (miss,
-    position, normal, diffuse, emission, specular, mtype, t)."""
+    Ks in the albedo lanes of mirrors, glossy and dielectric faces and
+    packs mtype + roughness in one lane (accel/wide.py): its integer part
+    is the material, its fraction the GGX roughness or the encoded IOR
+    (glossy lanes hold at most 2.96, so the floor splits them from the
+    dielectric's 3.0 and up as sfvp_tpu's kernels split the lane at 2.98,
+    megakernel_bvh.py:1388-1400). With ``textures`` and a textured
+    payload, the albedo is modulated by the bilinear fetch at the
+    payload's (texu, texv, texid); the specular tint stays as it is.
+    Returns (miss, position, normal, diffuse, emission, specular, mtype,
+    rough, t)."""
     miss = torch.isinf(pay.t)
     w = 1.0 - pay.u - pay.v
     position = vec.add(
@@ -173,14 +282,15 @@ def shade_from_payload(pay, textures=None):
     if textures is not None and pay.texid is not None:
         diffuse = vec.mul(diffuse, sample_bilinear(textures, pay.texid,
                                                    pay.texu, pay.texv))
+    mtype = torch.floor(pay.mtype)
     return (miss, position, normal, diffuse, pay.emission, pay.albedo,
-            torch.floor(pay.mtype), pay.t)
+            mtype, pay.mtype - mtype, pay.t)
 
 
 def brute_surface(cfg: RenderConfig, scene) -> Callable:
     """Trace hook of ``trace_wave`` over every triangle of ``scene``:
     ``surface(o, d, active) -> (miss, position, normal, diffuse, emission,
-    specular, mtype, t)``, t the hit distance."""
+    specular, mtype, rough, t)``, t the hit distance."""
 
     def surface(o, d, active):
         hit = trace_brute(o, d, scene, cfg.t_min, cfg.t_max, active=active)
@@ -249,12 +359,14 @@ def make_sort_key(cfg: RenderConfig, scene, on: bool) -> Optional[Callable]:
     (wavefront.py:200-256), or None when off (``sort_rays``):
     ``key(o, d, done, prev_mtype) -> (N,) int32``, (material << 24) |
     (direction octant << 21) | 7-bit-per-axis position morton, the
-    material bits only on scenes with mirrors and when
-    ``cfg.sort_material_key``; dead rays get 2**30. Sorting permutes the
-    rays of a wave and never changes a ray's result."""
+    material bits only on scenes with mirror, glossy or dielectric faces
+    and when ``cfg.sort_material_key`` (sfvp_tpu's _sort_key, :217); dead
+    rays get 2**30. Sorting permutes the rays of a wave and never changes
+    a ray's result."""
     if not on:
         return None
-    sort_material = cfg.sort_material_key and has_mirror_faces(scene)
+    sort_material = cfg.sort_material_key and (
+        has_mirror_faces(scene) or any(material_flags(scene).values()))
     t = scene.num_tris
     cols = {f: np.asarray(getattr(scene, f)[:t].cpu()) for f in (
         "v0x", "v0y", "v0z", "v1x", "v1y", "v1z", "v2x", "v2y", "v2z")}
@@ -344,10 +456,12 @@ def bsdf_pdf(uniform: bool, cos_s):
 
 def nee_direct(lights: LightTable, r_sel, rl1, rl2, position, normal,
                diffuse, weight, shadow_q, occluded, use_mis: bool,
-               uniform: bool, fused: bool):
+               uniform: bool, fused: bool, ggx=None, is_glossy=None):
     """The direct light one light sample brings to a hit, times the path
     weight: a (3,) tuple of (N,), zero where ``shadow_q`` is off, the light
-    is behind the surface or the shadow ray is blocked.
+    is behind the surface or the shadow ray is blocked. ``ggx``,
+    ``is_glossy``: the GGX frame of the hits and the mask of the glossy
+    ones, which take the GGX brdf and pdf (``light_bsdf``).
 
     Two float orders of the same estimate: the wavefront integrator's
     (sfvp_tpu/integrate/wavefront.py:476-513: the shadow ray to
@@ -368,8 +482,8 @@ def nee_direct(lights: LightTable, r_sel, rl1, rl2, position, normal,
         dist = torch.sqrt(dist2)
         wl = vec.scale(to_l, 1.0 / dist)
         smax = dist * SHADOW_SCALE
-    cos_s = vec.dot(wl, normal)
-    brdf_l = vec.scale(diffuse, INV_PI)
+    brdf_l, cos_s, p_bsdf_l = light_bsdf(wl, normal, diffuse, uniform, ggx,
+                                         is_glossy)
     cos_l = torch.abs(vec.dot(wl, nl))  # double-sided light
     shadow_q = shadow_q & (cos_s > 0)
     visible = shadow_q & torch.logical_not(occluded(position, wl, smax,
@@ -381,7 +495,6 @@ def nee_direct(lights: LightTable, r_sel, rl1, rl2, position, normal,
             p_nee_sa = dist2 / (area * torch.clamp_min(cos_l, 1e-6))
         else:
             p_nee_sa = dist2 * pdf_area / torch.clamp_min(cos_l, 1e-6)
-        p_bsdf_l = bsdf_pdf(uniform, cos_s)
         w_nee = p_nee_sa / torch.clamp_min(p_nee_sa + p_bsdf_l, 1e-30)
     if fused:
         g_pdf = cos_s * cos_l / dist2 * area
@@ -400,7 +513,8 @@ def nee_direct(lights: LightTable, r_sel, rl1, rl2, position, normal,
 
 def env_nee_direct(env, dist: EnvDistribution, r_sel, rl1, rl2, position,
                    normal, diffuse, weight, shadow_q, occluded, use_mis: bool,
-                   uniform: bool, fused: bool, t_max: float):
+                   uniform: bool, fused: bool, t_max: float, ggx=None,
+                   is_glossy=None):
     """The direct light one environment sample brings to a hit, times the
     path weight: a (3,) tuple of (N,), zero where ``shadow_q`` is off, the
     direction is below the surface or its shadow ray (to t_max (1 - 1e-3))
@@ -411,10 +525,11 @@ def env_nee_direct(env, dist: EnvDistribution, r_sel, rl1, rl2, position,
     (sfvp_tpu/integrate/wavefront.py:515-536: (brdf * Le) * (cos_s / pdf),
     then the MIS weight, then the path weight) and, with ``fused``, that of
     the fused kernels K1 and K5 (megakernel_regen.py:799-909: w * brdf *
-    Le * g_w, g_w = cos_s / pdf times the MIS weight)."""
+    Le * g_w, g_w = cos_s / pdf times the MIS weight). ``ggx``,
+    ``is_glossy``: as nee_direct's."""
     wl, pdf_sa = sample_env(dist, r_sel, rl1, rl2)
-    cos_s = vec.dot(wl, normal)
-    brdf_l = vec.scale(diffuse, INV_PI)
+    brdf_l, cos_s, p_bsdf_l = light_bsdf(wl, normal, diffuse, uniform, ggx,
+                                         is_glossy)
     shadow_q = shadow_q & (cos_s > 0)
     smax = torch.full_like(cos_s, f32(np.float32(t_max)
                                      * np.float32(SHADOW_SCALE)))
@@ -422,8 +537,7 @@ def env_nee_direct(env, dist: EnvDistribution, r_sel, rl1, rl2, position,
                                                     shadow_q))
     env_le = sample_environment(env, wl)
     if use_mis:
-        w_env = pdf_sa / torch.clamp_min(pdf_sa + bsdf_pdf(uniform, cos_s),
-                                         1e-30)
+        w_env = pdf_sa / torch.clamp_min(pdf_sa + p_bsdf_l, 1e-30)
     if fused:
         g_w = cos_s / torch.clamp_min(pdf_sa, 1e-12)
         if use_mis:
@@ -444,10 +558,22 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
                rr_every_depth: bool = True, surface=None, sort_key=None,
                lights: Optional[LightTable] = None, occluded=None,
                fused_nee: bool = False, env=None,
-               env_dist: Optional[EnvDistribution] = None):
+               env_dist: Optional[EnvDistribution] = None,
+               has_glossy: bool = False, has_diel: bool = False):
     """Trace one wave of camera paths: ray i is sample ``sample_ids[i]`` of
     global pixel (px[i], py[i]). Each segment's radiance is added into
-    ``color`` (zeros when None) in depth order.
+    ``color`` (zeros when None) in depth order. With an open lens
+    (``cfg.camera.lens_radius > 0``) two more numbers a sample, drawn
+    after the jitter, move the camera ray through the thin lens.
+
+    ``has_mirrors``, ``has_glossy``, ``has_diel`` (``material_flags``):
+    the scene has such faces, so their shading is traced: the mirror
+    reflection; the GGX brdf under NEE and the VNDF bounce (r1, r2 the
+    hemisphere sample's), a bounce below the surface ending the path; the
+    dielectric's reflect-or-refract choice by r1 against the Fresnel
+    term, tinted by Ks at each interface, the IOR 1 + 4 rough. Mirrors and
+    dielectrics take no light sample, and the emission their bounce finds
+    counts in full.
 
     ``rr_every_depth``: draw the roulette number at every depth, as the
     wavefront integrator, K1 and K5 do; K2 draws it only from
@@ -492,6 +618,10 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
     r1, seed = rng.rand(seed)
     r2, seed = rng.rand(seed)
     o, d = generate_rays_soa(px, py, r1, r2, cfg.camera, gw, gh)
+    if cfg.camera.lens_radius > 0.0:
+        rl1, seed = rng.rand(seed)
+        rl2, seed = rng.rand(seed)
+        o, d = apply_thin_lens_soa(o, d, rl1, rl2, cfg.camera)
     weight = vec.splat((1.0, 1.0, 1.0), like=o[0])
     if color is None:
         color = vec.splat((0.0, 0.0, 0.0), like=o[0])
@@ -525,8 +655,8 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
             if any_nee:
                 pdf_prev, count_emit = fl[13], it[4].bool()
         active = torch.logical_not(done)
-        miss, position, normal, diffuse, emission, spec, mtype, t_hit = (
-            surface(o, d, active))
+        (miss, position, normal, diffuse, emission, spec, mtype, rough,
+         t_hit) = surface(o, d, active)
         if env is not None:
             # image-based sky: the equirect map in the miss direction
             sky = sample_environment(env, d)
@@ -540,24 +670,35 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
                 use_env_nee) * emit_w
         color = vec.add(color, vec.scale(vec.mul(weight, emission), emit_w))
 
-        is_mirror = (mtype == 1) & torch.logical_not(miss)
+        hit = torch.logical_not(miss)
+        is_mirror = (mtype == 1) & hit
+        # specular faces (delta BSDFs) take no light sample
+        is_spec = is_mirror
+        if has_diel:
+            is_diel = (mtype == 3) & hit
+            is_spec = is_mirror | is_diel
+        ggx = is_glossy = None
+        if has_glossy:
+            is_glossy = (mtype == 2) & hit
+            ggx = ggx_frame(d, normal, rough, spec)
         if use_nee:
             r_sel, seed = rng.rand(seed)
             rl1, seed = rng.rand(seed)
             rl2, seed = rng.rand(seed)
-            shadow_q = active & torch.logical_not(miss | is_mirror)
+            shadow_q = active & torch.logical_not(miss | is_spec)
             color = vec.add(color, nee_direct(
                 lights, r_sel, rl1, rl2, position, normal, diffuse, weight,
-                shadow_q, occluded, use_mis, uniform, fused_nee))
+                shadow_q, occluded, use_mis, uniform, fused_nee, ggx,
+                is_glossy))
         if use_env_nee:
             r_sel, seed = rng.rand(seed)
             rl1, seed = rng.rand(seed)
             rl2, seed = rng.rand(seed)
-            shadow_q = active & torch.logical_not(miss | is_mirror)
+            shadow_q = active & torch.logical_not(miss | is_spec)
             color = vec.add(color, env_nee_direct(
                 env, env_dist, r_sel, rl1, rl2, position, normal, diffuse,
                 weight, shadow_q, occluded, use_mis, uniform, fused_nee,
-                cfg.t_max))
+                cfg.t_max, ggx, is_glossy))
 
         r1, seed = rng.rand(seed)
         r2, seed = rng.rand(seed)
@@ -568,6 +709,10 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
         else:
             new_dir = sample_direction_cosine_soa(r1, r2, normal)
             scale = diffuse  # pdf = cos/pi cancels the cosine
+        if has_glossy:
+            wi_g, scale_g, g_valid, h_z = ggx_bounce(ggx, r1, r2)
+            new_dir = vec.where(is_glossy, wi_g, new_dir)
+            scale = vec.where(is_glossy, scale_g, scale)
         if use_mis:
             # the pdf of the sampled direction, taken before the mirror
             # override (mirror paths never read it: count_emit is set)
@@ -576,6 +721,10 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
             else:
                 new_pdf = torch.clamp_min(vec.dot(new_dir, normal),
                                           0.0) * INV_PI
+            if has_glossy:
+                new_pdf = torch.where(
+                    is_glossy, ggx_vndf_pdf(ggx.wo_l[2], h_z, ggx.alpha),
+                    new_pdf)
         if has_mirrors:
             # perfect mirror: reflect about the normal flipped toward the
             # incoming ray (geometry is double-sided)
@@ -584,8 +733,20 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
             refl = vec.sub(d, vec.scale(n_f, 2.0 * vec.dot(d, n_f)))
             new_dir = vec.where(is_mirror, refl, new_dir)
             scale = vec.where(is_mirror, spec, scale)
+        if has_diel:
+            # Snell refraction with the exact Fresnel split; the IOR rides
+            # in rough as (Ni - 1) / 4 (scene/objload.py), the tint is Ks
+            refl_d, refr_d, fres, tir = dielectric_reflect_refract_soa(
+                d, normal, 1.0 + 4.0 * rough)
+            diel_dir = vec.where(tir | (r1 < fres), refl_d, refr_d)
+            new_dir = vec.where(is_diel, diel_dir, new_dir)
+            scale = vec.where(is_diel, spec, scale)
 
-        cont = active & torch.logical_not(miss)
+        cont = active & hit
+        if has_glossy:
+            # a GGX bounce below the surface is absorbed
+            cont = cont & torch.logical_not(is_glossy
+                                            & torch.logical_not(g_valid))
         rr_on = depth >= cfg.rr_start_depth
         if cfg.use_rr and (rr_on or rr_every_depth):
             p = torch.clamp(vec.maxc(vec.mul(weight, scale)), 0.05, 0.95)
@@ -600,7 +761,7 @@ def trace_wave(cfg: RenderConfig, scene, px, py, sample_ids, frame: int,
         done = torch.logical_not(cont)
         segs += active.to(torch.int32)
         if any_nee:
-            count_emit = is_mirror
+            count_emit = is_spec
         if use_mis:
             pdf_prev = torch.where(cont, new_pdf, pdf_prev)
         if sort_key is not None:
@@ -707,6 +868,7 @@ def make_render_step(cfg: RenderConfig, scene,
                                                             cfg.width)
     chunk = cfg.spp_chunk
     mirrors = has_mirror_faces(scene)
+    mats = material_flags(scene)
     dev = scene.device
     lights = build_light_table_from_buffers(scene) if cfg.use_nee else None
     env = scene.env
@@ -732,7 +894,7 @@ def make_render_step(cfg: RenderConfig, scene,
                                     gshape, has_mirrors=mirrors,
                                     surface=surface, sort_key=sort_key,
                                     lights=lights, occluded=occlusion_fn,
-                                    env=env, env_dist=env_dist)
+                                    env=env, env_dist=env_dist, **mats)
             return (*color, seg)
 
         return sum_chunks(cfg, n, wave, dev)

@@ -28,17 +28,16 @@ from pathlib import Path
 
 import torch
 
+from ..camera import lens_frame
 from ..config import RenderConfig
 from ..integrate.lights import N_LIGHT_ROWS
+from ..native import BUILD_DIR
 from ..integrate.wavefront import UNIFORM_PDF, UNIFORM_SCALE
 from ..sampling import INV_PI, INV_TWO_PI, TWO_PI
 from ..utils.vec import f32
 from .intersect import _DET_EPS
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(os.environ.get(
-    "SFVP_TPU_TORCH_BUILD_DIR",
-    Path(__file__).resolve().parents[2] / "build" / "sfvp_tpu_torch"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
@@ -86,7 +85,11 @@ class Params(ctypes.Structure):
             "env_h_over_pi", "inv_two_pi", "pi")] + [
         (name, ctypes.c_void_p) for name in (
             "env_r", "env_g", "env_b", "env_cdf", "env_pdf", "tex_r", "tex_g",
-            "tex_b", "tex_off", "tex_w", "tex_h")]
+            "tex_b", "tex_off", "tex_w", "tex_h")] + [
+        (name, ctypes.c_int) for name in ("use_mat", "use_dof")] + [
+        (name, ctypes.c_float) for name in ("lens_r", "focus_d")] + [
+        (name, ctypes.c_float * 3) for name in (
+            "lens_rn", "lens_un", "lens_fwd")]
 
 
 class WideParams(ctypes.Structure):
@@ -124,7 +127,8 @@ def table_plan(num_tris: int, rows: int):
 def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
                 npix: int, num_tris: int, tp: int, chunk_idx: int = 0,
                 lights=None, env=None, env_dist=None, textures=None,
-                rows: int = 20) -> Params:
+                rows: int = 20, has_glossy: bool = False,
+                has_diel: bool = False) -> Params:
     """Launch parameters; every float is the float32 the twins use.
     ``lights`` (integrate/lights.py LightTable): next-event estimation
     when ``cfg.use_nee``, MIS when ``cfg.use_mis`` too (also with the
@@ -132,7 +136,12 @@ def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
     (scene/textures.py TextureTable): the sky of a miss; ``env_dist``
     (lights.env_distribution_for): its NEE under ``cfg.use_nee``;
     ``textures``: the map_Kd pool; ``rows``: the brute-force table's host
-    rows. The tensors must stay alive while the kernel runs."""
+    rows; ``has_glossy``, ``has_diel``: the scene has GGX or dielectric
+    faces (the kernels built with their shading take it, ``use_mat``);
+    an open lens (``cfg.camera.lens_radius > 0``): the kernels built with
+    the thin lens take it (``use_dof``) and its float32 frame
+    (camera.lens_frame). The tensors must stay alive while the kernel
+    runs."""
     gh, gw = global_shape
     vec3 = ctypes.c_float * 3
     cam = cfg.camera
@@ -159,6 +168,12 @@ def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
         rows=rows, tile=table_plan(num_tris, rows)[0],
         inv_two_pi=INV_TWO_PI, pi=f32(math.pi),
     )
+    params.use_mat = int(has_glossy or has_diel)
+    if cam.lens_radius > 0.0:
+        params.use_dof = 1
+        params.lens_r, params.focus_d, rn, un, fwd = lens_frame(cam)
+        params.lens_rn, params.lens_un, params.lens_fwd = (
+            vec3(*rn), vec3(*un), vec3(*fwd))
     if env is not None:
         set_env(params, env)
     if use_env_nee:
@@ -288,11 +303,17 @@ def library() -> ctypes.CDLL:
     lib.sfvp_env_fetch.argtypes = [
         ctypes.POINTER(Params), ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    # P2: table, rows, iterations, mode, out, stream; P5: x, out, stream
+    lib.sfvp_leaf_probe.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.sfvp_smem_dma.argtypes = [ctypes.c_void_p] * 3
     for fn in (lib.sfvp_wave_render, lib.sfvp_regen_render,
                lib.sfvp_bvh_regen_render, lib.sfvp_tlas_regen_render,
                lib.sfvp_bvh_trace, lib.sfvp_bvh_occlusion,
                lib.sfvp_tlas_trace, lib.sfvp_tlas_occlusion,
-               lib.sfvp_packet_trace2, lib.sfvp_env_fetch):
+               lib.sfvp_packet_trace2, lib.sfvp_env_fetch,
+               lib.sfvp_leaf_probe, lib.sfvp_smem_dma):
         fn.restype = ctypes.c_int
     return lib
 

@@ -23,6 +23,7 @@ from ..integrate.wavefront import (
     RenderState,
     accumulate,
     has_mirror_faces,
+    material_flags,
     require_slice,
     sum_chunks,
     trace_wave,
@@ -106,13 +107,17 @@ def make_wave_render_step(cfg: RenderConfig, scene: SceneBuffers,
                           global_shape: Optional[tuple] = None):
     """Progressive render step driven by K2: ``render_step(state, row0=0)
     -> state``, with the semantics of integrate.make_render_step. K2 has
-    neither environment maps nor textures (dispatch takes the eager loop
-    for them, as sfvp_tpu's does, dispatch.py:245-256)."""
+    neither environment maps, textures, GGX, dielectrics nor a thin lens
+    (dispatch takes the eager loop for them, as sfvp_tpu's does,
+    dispatch.py:242-256)."""
     require_slice(cfg, scene)
-    if scene.env is not None or scene.has_textures:
-        raise ValueError("K2 renders neither environment maps nor textures; "
-                         "dispatch.select_render_step takes the eager "
-                         "wavefront loop for them")
+    if (scene.env is not None or scene.has_textures
+            or cfg.camera.lens_radius > 0.0
+            or any(material_flags(scene).values())):
+        raise ValueError("K2 renders neither environment maps, textures, "
+                         "GGX, dielectrics nor a thin lens; dispatch."
+                         "select_render_step takes the eager wavefront "
+                         "loop for them")
     gshape = global_shape if global_shape is not None else (cfg.height,
                                                             cfg.width)
     table = scene_table(scene)

@@ -14,8 +14,11 @@ wide BVH, K7's (``two_level_trace_plain``) over a two-level one. Each
 sample's radiance is added straight into the pixel total, K1's order.
 
 Counterpart of sfvp_tpu/kernels/megakernel_bvh.py
-(make_bvh_regen_render_step, single-level and with ``tl=``), for diffuse
-and mirror materials, uniform and cosine sampling, Russian roulette with a
+(make_bvh_regen_render_step, single-level and with ``tl=``), for every
+material (diffuse, mirror, GGX glossy and the smooth dielectric, decoded
+from the packed material lane, its :1388-1445, :1895-2017, :2107-2170),
+the thin-lens camera (:411-420, :683-700), uniform and cosine sampling,
+Russian roulette with a
 roulette number drawn at every bounce, and next-event estimation with MIS,
 whose shadow rays take the any-hit walk of K4 (the twin's
 ``packet_occlusion_plain``) or of K8 (``two_level_occlusion_plain``). As in
@@ -43,7 +46,9 @@ from ..integrate.lights import (
 from ..integrate.wavefront import (
     RenderState,
     accumulate,
+    count_materials,
     has_mirror_faces,
+    material_flags,
     payload_surface,
     trace_wave,
 )
@@ -69,16 +74,19 @@ def bvh_regen_render_plain(dw, frame: int, row0: int, *,
                            lights: Optional[LightTable] = None,
                            env=None,
                            env_dist: Optional[EnvDistribution] = None,
-                           textures=None, counts: Optional[dict] = None):
+                           textures=None, counts: Optional[dict] = None,
+                           has_glossy: bool = False, has_diel: bool = False):
     """Plain PyTorch twin of the K5 kernel (``dw`` a DeviceWide) and of
     the K9 kernel (``dw`` a DeviceTwoLevel): same arguments, same results.
     Samples run one wave at a time, each adding into the running per-pixel
     totals, which is the kernel's summation order; NEE in the kernel's
     float order. ``env``, ``env_dist``, ``textures``: K1's
     (megakernel_regen.regen_render_plain), the texture coordinates from
-    the textured tree's payload. ``counts`` gathers the traversal's pops (the closest-hit
-    twin's) and the segments that hit ("hits"), and under NEE the shadow
-    rays ("shadow_rays") and their pops ("shadow_node_pops", ...). Returns
+    the textured tree's payload; ``has_glossy``, ``has_diel``: K1's.
+    ``counts`` gathers the traversal's pops (the closest-hit twin's), the
+    segments that hit ("hits") and those on GGX and dielectric faces
+    ("glossy_hits", "diel_hits"), and under NEE the shadow rays
+    ("shadow_rays") and their pops ("shadow_node_pops", ...). Returns
     (colr, colg, colb, segs), each (npix,)."""
     if isinstance(dw, DeviceTwoLevel):
         trace_plain, occlusion_plain = (two_level_trace_plain,
@@ -95,8 +103,9 @@ def bvh_regen_render_plain(dw, frame: int, row0: int, *,
         planes = trace_plain(dw, cfg.t_min, ray_planes(o, d, t_max, active),
                              counts)
         if counts is not None:
-            counts["hits"] = (counts.get("hits", 0)
-                              + int(torch.isfinite(planes[0]).sum()))
+            hit = torch.isfinite(planes[0])
+            counts["hits"] = counts.get("hits", 0) + int(hit.sum())
+            count_materials(counts, torch.floor(planes[18]), hit)
         return payload_from_planes(planes)
 
     shadow = None if counts is None else {}
@@ -116,7 +125,8 @@ def bvh_regen_render_plain(dw, frame: int, row0: int, *,
                                 color=color, has_mirrors=has_mirrors,
                                 surface=surface, lights=lights,
                                 occluded=occluded, fused_nee=True, env=env,
-                                env_dist=env_dist)
+                                env_dist=env_dist, has_glossy=has_glossy,
+                                has_diel=has_diel)
         segs += seg
     if shadow:
         counts.update({f"shadow_{k}": v for k, v in shadow.items()})
@@ -124,14 +134,15 @@ def bvh_regen_render_plain(dw, frame: int, row0: int, *,
 
 
 def _render(fn_name, params_of, dw, frame, row0, cfg, global_shape, npix,
-            has_mirrors, lights, env=None, env_dist=None, textures=None):
+            has_mirrors, lights, env=None, env_dist=None, textures=None,
+            has_glossy=False, has_diel=False):
     """Launch K5 or K9 (``fn_name``) over the tree's params
     (``params_of``, a build.*_params)."""
     tp = params_of(dw, cfg.t_min)
     params = build.make_params(
         cfg, frame=frame, row0=row0, global_shape=global_shape, npix=npix,
         num_tris=0, tp=0, lights=lights, env=env, env_dist=env_dist,
-        textures=textures)
+        textures=textures, has_glossy=has_glossy, has_diel=has_diel)
     check_images(params, tp.device, env, env_dist, textures)
     if params.use_nee:
         build.check_lights(lights.rows, tp.device)
@@ -143,12 +154,14 @@ def bvh_regen_render(dw: DeviceWide, frame: int, row0: int, *,
                      cfg: RenderConfig, global_shape, npix: int,
                      has_mirrors: bool, lights: Optional[LightTable] = None,
                      env=None, env_dist: Optional[EnvDistribution] = None,
-                     textures=None):
+                     textures=None, has_glossy: bool = False,
+                     has_diel: bool = False):
     """K5 on the BVH's device: the CUDA kernel for CUDA tensors (or an
     error), the plain twin for CPU tensors. ``lights``: the scene's light
     table on the same device, for ``cfg.use_nee``; ``env``, ``env_dist``:
     its environment map and the map's NEE distribution; ``textures``: the
-    texture pool of a textured tree (``dw.tris_aux``).
+    texture pool of a textured tree (``dw.tris_aux``); ``has_glossy``,
+    ``has_diel``: the scene has such faces (wavefront.material_flags).
     ``bvh_regen_render.launches`` counts kernel launches."""
     if (dw.tris_aux is None) != (textures is None):
         raise ValueError("a textured tree (tris_aux) comes with its texture "
@@ -157,10 +170,11 @@ def bvh_regen_render(dw: DeviceWide, frame: int, row0: int, *,
         return bvh_regen_render_plain(
             dw, frame, row0, cfg=cfg, global_shape=global_shape, npix=npix,
             has_mirrors=has_mirrors, lights=lights, env=env,
-            env_dist=env_dist, textures=textures)
+            env_dist=env_dist, textures=textures, has_glossy=has_glossy,
+            has_diel=has_diel)
     out = _render("sfvp_bvh_regen_render", build.wide_params, dw, frame, row0,
                   cfg, global_shape, npix, has_mirrors, lights, env, env_dist,
-                  textures)
+                  textures, has_glossy, has_diel)
     bvh_regen_render.launches += 1
     return out
 
@@ -170,17 +184,21 @@ bvh_regen_render.launches = 0
 
 def tlas_regen_render(dt: DeviceTwoLevel, frame: int, row0: int, *,
                       cfg: RenderConfig, global_shape, npix: int,
-                      has_mirrors: bool, lights: Optional[LightTable] = None):
+                      has_mirrors: bool, lights: Optional[LightTable] = None,
+                      has_glossy: bool = False, has_diel: bool = False):
     """K9 on the two-level BVH's device: the CUDA kernel for CUDA tensors
     (or an error), the plain twin for CPU tensors. ``lights``: the
-    flattened scene's light table on the same device, for ``cfg.use_nee``.
+    flattened scene's light table on the same device, for ``cfg.use_nee``;
+    ``has_glossy``, ``has_diel``: as K5's.
     ``tlas_regen_render.launches`` counts kernel launches."""
     if dt.device.type == "cpu":
         return bvh_regen_render_plain(
             dt, frame, row0, cfg=cfg, global_shape=global_shape, npix=npix,
-            has_mirrors=has_mirrors, lights=lights)
+            has_mirrors=has_mirrors, lights=lights, has_glossy=has_glossy,
+            has_diel=has_diel)
     out = _render("sfvp_tlas_regen_render", build.two_level_params, dt, frame,
-                  row0, cfg, global_shape, npix, has_mirrors, lights)
+                  row0, cfg, global_shape, npix, has_mirrors, lights,
+                  has_glossy=has_glossy, has_diel=has_diel)
     tlas_regen_render.launches += 1
     return out
 
@@ -207,6 +225,7 @@ def make_bvh_regen_render_step(cfg: RenderConfig, buffers,
     gshape = global_shape if global_shape is not None else (cfg.height,
                                                             cfg.width)
     has_mirrors = has_mirror_faces(buffers)
+    mats = material_flags(buffers)
     lights = build_light_table_from_buffers(buffers) if cfg.use_nee else None
     if tl is None:
         env_dist = (env_distribution_for(buffers.env)
@@ -226,7 +245,8 @@ def make_bvh_regen_render_step(cfg: RenderConfig, buffers,
         h, w = state.accum.shape[0], state.accum.shape[1]
         *color, segs = render(
             tree, state.frame, row0, cfg=cfg, global_shape=gshape,
-            npix=h * w, has_mirrors=has_mirrors, lights=lights, **images)
+            npix=h * w, has_mirrors=has_mirrors, lights=lights, **images,
+            **mats)
         return accumulate(state, color, segs.sum(dtype=torch.int64),
                           cfg.spp_per_step)
 

@@ -10,9 +10,11 @@ sfvp_tpu/kernels/megakernel_regen.py:629-631), so K1 matches the
 wavefront integrator to f32 summation order (~1e-6), not bitwise.
 
 Counterpart of sfvp_tpu/kernels/megakernel_regen.py (make_regen_render_step)
-for diffuse and mirror materials, uniform and cosine sampling, Russian
-roulette, next-event estimation with MIS, an equirect environment sky with
-its importance-sampled NEE (alone or beside the area lights) and map_Kd
+for every material (diffuse, mirror, GGX glossy, smooth dielectric; its
+:497-540, :723-781, :839-889, :976-1044), the thin-lens camera (:232-246,
+:368), uniform and cosine sampling, Russian roulette, next-event
+estimation with MIS, an equirect environment sky with its
+importance-sampled NEE (alone or beside the area lights) and map_Kd
 textures (its :144-218). The light table, the environment's pool and CDF
 and the texel pool are read from device memory, so any number of lights
 and any map or atlas size runs in the kernel: sfvp_tpu's MAX_KERNEL_LIGHTS
@@ -39,7 +41,10 @@ from ..integrate.wavefront import (
     RenderState,
     accumulate,
     brute_occluded,
+    brute_surface,
+    count_materials,
     has_mirror_faces,
+    material_flags,
     require_slice,
     trace_wave,
 )
@@ -53,7 +58,8 @@ def regen_render_plain(table, frame: int, row0: int, *, cfg: RenderConfig,
                        num_tris: int, global_shape, npix: int,
                        has_mirrors: bool, lights: Optional[LightTable] = None,
                        env=None, env_dist: Optional[EnvDistribution] = None,
-                       textures=None, counts: Optional[dict] = None):
+                       textures=None, counts: Optional[dict] = None,
+                       has_glossy: bool = False, has_diel: bool = False):
     """Plain PyTorch twin of the K1 kernel: same arguments, same results.
     Samples run one wave at a time, each adding into the running per-pixel
     totals, which is the kernel's summation order; NEE (toward the area
@@ -61,15 +67,23 @@ def regen_render_plain(table, frame: int, row0: int, *, cfg: RenderConfig,
     order, its shadow rays by brute force. ``env``: the sky of a miss;
     ``textures``: the map_Kd pool of a (27, Tp) table. ``counts`` gathers
     the shadow rays ("shadow_rays") and the triangle tests the kernel's
-    early-exit scan takes on them ("shadow_tests"). Returns (colr, colg,
-    colb, segs), each (npix,)."""
+    early-exit scan takes on them ("shadow_tests"), and the segments
+    on GGX and dielectric faces ("glossy_hits", "diel_hits"). Returns
+    (colr, colg, colb, segs), each (npix,)."""
     gw = global_shape[1]
     scene = buffers_from_table(table, num_tris, textures)
     pix = torch.arange(npix, device=table.device)
     px = pix % gw
     py = pix // gw + row0
-    occluded = None  # trace_wave's brute-force shadow rays
+    occluded = surface = None  # trace_wave's brute-force rays
     if counts is not None:
+        brute_hit = brute_surface(cfg, scene)
+
+        def surface(o, d, active):
+            out = brute_hit(o, d, active)
+            count_materials(counts, out[6], active & ~out[0])
+            return out
+
         brute = brute_occluded(cfg, scene)
 
         def occluded(o, d, t_max, active):
@@ -84,7 +98,9 @@ def regen_render_plain(table, frame: int, row0: int, *, cfg: RenderConfig,
         color, seg = trace_wave(cfg, scene, px, py, s, frame, global_shape,
                                 color=color, has_mirrors=has_mirrors,
                                 lights=lights, occluded=occluded,
-                                fused_nee=True, env=env, env_dist=env_dist)
+                                surface=surface, fused_nee=True, env=env,
+                                env_dist=env_dist,
+                                has_glossy=has_glossy, has_diel=has_diel)
         segs += seg
     return (*color, segs)
 
@@ -107,25 +123,29 @@ def check_images(params, device, env=None, env_dist=None,
 def regen_render(table, frame: int, row0: int, *, cfg: RenderConfig,
                  num_tris: int, global_shape, npix: int, has_mirrors: bool,
                  lights: Optional[LightTable] = None, env=None,
-                 env_dist: Optional[EnvDistribution] = None, textures=None):
+                 env_dist: Optional[EnvDistribution] = None, textures=None,
+                 has_glossy: bool = False, has_diel: bool = False):
     """K1 on ``table``'s device: the CUDA kernel for a CUDA tensor (or an
     error), the plain twin for a CPU tensor. ``lights``: the scene's light
     table on the same device, for ``cfg.use_nee``; ``env``, ``env_dist``,
     ``textures``: its environment map, the map's NEE distribution and its
-    texture pool there. ``regen_render.launches`` counts kernel
-    launches."""
+    texture pool there; ``has_mirrors``, ``has_glossy``, ``has_diel``: the
+    scene has such faces (integrate.wavefront.material_flags).
+    ``regen_render.launches`` counts kernel launches."""
     if table.device.type == "cpu":
         return regen_render_plain(
             table, frame, row0, cfg=cfg, num_tris=num_tris,
             global_shape=global_shape, npix=npix, has_mirrors=has_mirrors,
-            lights=lights, env=env, env_dist=env_dist, textures=textures)
+            lights=lights, env=env, env_dist=env_dist, textures=textures,
+            has_glossy=has_glossy, has_diel=has_diel)
     build.check_table(table, num_tris)
     if (table.shape[0] == 27) != (textures is not None):
         raise ValueError("a (27, Tp) table comes with its texture pool")
     params = build.make_params(
         cfg, frame=frame, row0=row0, global_shape=global_shape, npix=npix,
         num_tris=num_tris, tp=table.shape[1], lights=lights, env=env,
-        env_dist=env_dist, textures=textures, rows=table.shape[0])
+        env_dist=env_dist, textures=textures, rows=table.shape[0],
+        has_glossy=has_glossy, has_diel=has_diel)
     check_images(params, table.device, env, env_dist, textures)
     if params.use_nee:
         build.check_lights(lights.rows, table.device)
@@ -150,6 +170,7 @@ def make_regen_render_step(cfg: RenderConfig, scene: SceneBuffers,
     table = scene_table(scene)
     num_tris = scene.num_tris
     has_mirrors = has_mirror_faces(scene)
+    mats = material_flags(scene)
     lights = build_light_table_from_buffers(scene) if cfg.use_nee else None
     env_dist = (env_distribution_for(scene.env)
                 if cfg.use_nee and scene.env is not None else None)
@@ -160,7 +181,7 @@ def make_regen_render_step(cfg: RenderConfig, scene: SceneBuffers,
             table, state.frame, row0, cfg=cfg, num_tris=num_tris,
             global_shape=gshape, npix=h * w, has_mirrors=has_mirrors,
             lights=lights, env=scene.env, env_dist=env_dist,
-            textures=scene.textures)
+            textures=scene.textures, **mats)
         return accumulate(state, color, segs.sum(dtype=torch.int64),
                           cfg.spp_per_step)
 

@@ -9,8 +9,9 @@ Mirrors ref main.cpp:28-58 (``loadFromFile`` + tinyobjloader defaults):
     ``usemtl``; diffuse = Kd, emission = Ke (ref main.cpp:47-56)
 
 This is the pure-Python parser of sfvp_tpu.scene.objload (its
-``native="never"`` path); the ctypes loader over csrc/ is not carried over
-yet. Both packages produce identical arrays (tests/test_torch_scene.py).
+``native="never"`` path) beside the package's C++ loader (native.py), which
+``native="auto"`` takes when its library loads. All of them produce
+identical arrays (tests/test_torch_scene.py, tests/test_torch_native.py).
 """
 
 from __future__ import annotations
@@ -115,10 +116,24 @@ def _resolve_vt_index(tok: str, nvt: int) -> int:
     return (nvt + i) if i < 0 else (i - 1)
 
 
-def load_obj(path: Optional[str] = None, flip_y: bool = True) -> Scene:
-    """Parse an OBJ (+ its mtllib) into the reference's flat layout."""
+def load_obj(path: Optional[str] = None, flip_y: bool = True,
+             native: str = "auto") -> Scene:
+    """Parse an OBJ (+ its mtllib) into the reference's flat layout.
+    ``native``: "auto" takes the C++ loader when its library loads,
+    "never" this parser, "require" raises RuntimeError without the
+    library (sfvp_tpu objload.py:118-140); the outputs are identical."""
     if path is None:
         path = cornell_box_path()
+    if native not in ("auto", "never", "require"):
+        raise ValueError(f"unknown native={native!r}")
+    if native != "never":
+        from .. import native as native_mod
+
+        if native == "require":
+            native_mod.require("OBJ loader")
+        scene = native_mod.load_obj_native(path, flip_y)
+        if scene is not None:
+            return scene
     base = os.path.dirname(os.path.abspath(path))
 
     positions: List[Tuple[float, float, float]] = []

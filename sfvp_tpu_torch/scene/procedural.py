@@ -113,8 +113,8 @@ def city_mesh(n_buildings: int = 100, subdiv: int = 9, size: float = 20.0,
     ``n_buildings`` axis-aligned towers with tessellated faces
     (~``6 * 2 * subdiv^2`` tris each), so triangle density varies by
     orders of magnitude across space. A few rooftops are emissive;
-    ``glossy_ground`` makes the ground a GGX reflector (not ported yet,
-    ROADMAP.md A.12)."""
+    ``glossy_ground`` makes the ground a GGX reflector (roughness 0.2,
+    the reference suite's glossy city, bench.py:136-195)."""
     g = np.random.default_rng(seed)
     tri_chunks, kd, ke, mtype, rough = [], [], [], [], []
 

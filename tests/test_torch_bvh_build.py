@@ -147,7 +147,11 @@ def test_reorder_bfs_equal():
 
 def test_builder_auto_picks_sah_then_lbvh(monkeypatch):
     """"auto" chooses as sfvp_tpu does without its native library: SAH up
-    to SAH_MAX_TRIS triangles, LBVH beyond."""
+    to SAH_MAX_TRIS triangles, LBVH beyond (the library hidden here;
+    tests/test_torch_native.py has the case with it)."""
+    from sfvp_tpu_torch import native
+
+    monkeypatch.setattr(native, "_get_lib", lambda: None)
     jb, tb = _buffers("sphere")
     sah_tree = wide.build_wide_from_buffers(tb, builder="sah")
     lbvh_tree = wide.build_wide_from_buffers(tb, builder="lbvh")
@@ -163,9 +167,14 @@ def test_sah_limit_is_sfvp_tpus():
 
 
 @pytest.mark.parametrize("builder", ["lbvh", "sah"])
-def test_native_builder_require_raises(builder):
+def test_native_builder_require_raises(builder, monkeypatch):
+    """``native="require"`` raises when the native library is absent (it
+    is hidden here), as sfvp_tpu's does."""
+    from sfvp_tpu_torch import native
+
+    monkeypatch.setattr(native, "_get_lib", lambda: None)
     _, tb = _buffers("cornell")
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(RuntimeError, match="native .* requested"):
         wide.build_wide_from_buffers(tb, native="require", builder=builder)
 
 

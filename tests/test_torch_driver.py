@@ -129,21 +129,23 @@ def test_cli_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    # --nee and --mis render now (tests/test_torch_nee.py); with an
-    # unported feature beside them the CLI still raises
-    ["--lens-radius", "0.1", "--nee"],
+    # --nee and --mis render now (tests/test_torch_nee.py), and so do
+    # --lens-radius and --focus-dist (tests/test_torch_dof.py); beside the
+    # unported --dist the CLI still raises
+    ["--dist", "--lens-radius", "0.1", "--nee"],
     # --env-map renders now (tests/test_torch_envmap.py); beside an
     # unported feature the CLI still raises, before it reads the map
-    ["--env-map", "sky.hdr", "--lens-radius", "0.1", "--mis"],
-    ["--lens-radius", "0.2", "--env-map", "sky.hdr"], ["--lens-radius", "0.1"],
-    ["--focus-dist", "3.0"], ["--dist"],
+    ["--env-map", "sky.hdr", "--lens-radius", "0.1", "--dist", "--mis"],
+    ["--dist", "--lens-radius", "0.2", "--env-map", "sky.hdr"],
+    ["--dist", "--lens-radius", "0.1"],
+    ["--dist", "--focus-dist", "3.0"], ["--dist"],
     # --adaptive renders now (tests/test_torch_adaptive.py); with an
     # unported feature beside it the CLI still raises
-    ["--lens-radius", "0.1", "--adaptive", "0.5"],
+    ["--dist", "--lens-radius", "0.1", "--adaptive", "0.5"],
     # procedural scenes render now; an unported feature on one still raises
-    ["--nee", "--lens-radius", "0.1", "--scene", "sphere"],
+    ["--nee", "--lens-radius", "0.1", "--dist", "--scene", "sphere"],
     # and so does the instanced scene (tests/test_torch_instances.py)
-    ["--lens-radius", "0.1", "--scene", "instanced"]],
+    ["--lens-radius", "0.1", "--dist", "--scene", "instanced"]],
     ids=lambda f: f[-1] if len(f) > 1 else f[0])
 def test_cli_out_of_slice_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -155,13 +157,15 @@ def test_cli_out_of_slice_flags_raise(flags, tmp_path):
 
 def test_renderer_refuses_instances():
     """Instances render now (tests/test_torch_instances.py); the Renderer
-    takes no trace_fn, and refuses a feature not ported yet on them."""
+    takes no trace_fn, and refuses a lens without a focal plane on them."""
     from sfvp_tpu_torch.accel.instances import Instance
     from sfvp_tpu_torch.kernels.intersect import trace_brute
 
     insts = [Instance(scene=T.load_obj())]
     with pytest.raises(TypeError, match="trace_fn"):
         T.Renderer(T.RenderConfig(**KW), insts, "cpu", trace_fn=trace_brute)
+    # depth of field renders on instances now (tests/test_torch_dof.py);
+    # an open lens without a focal plane in front of it is refused
     dof = dataclasses.replace(T.CameraConfig(), lens_radius=0.1)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="focus_dist"):
         T.Renderer(T.RenderConfig(**KW, camera=dof), insts, "cpu")

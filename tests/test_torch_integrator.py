@@ -150,10 +150,12 @@ def test_band_equals_rows_of_full_image():
 @pytest.mark.parametrize("change", ["nee", "mis", "dof", "glossy", "bvh",
                                     "too_many_tris"])
 def test_out_of_slice_raises(change):
-    """NEE and MIS run now (tests/test_torch_nee.py); turned on, they do
-    not let an unported feature through: the "nee" case pairs NEE with a
-    GGX material and "mis" pairs MIS with depth of field, and each raises
-    naming A.12 only."""
+    """NEE, MIS, GGX and depth of field all render now (the "nee" case
+    pairs NEE with a GGX material, "mis" MIS with depth of field;
+    tests/test_torch_materials.py, test_torch_dof.py): each config renders
+    a finite image, and the same config with an open lens and no focal
+    plane in front of it (focus_dist 0) raises ValueError, as sfvp_tpu's
+    camera does, on the BVH route before it asks for the tree."""
     import dataclasses
 
     from sfvp_tpu_torch.scene.buffers import from_arrays
@@ -166,27 +168,31 @@ def test_out_of_slice_raises(change):
     mt[0] = 2
     glossy = from_arrays(s.triangles(), s.face_diffuse, s.face_emission,
                          mat_type=mt, device="cpu")
-    cfg = T.RenderConfig(width=8, height=8)
+    cfg = T.RenderConfig(width=8, height=8, spp_per_step=1, max_depth=2)
     if change == "nee":
-        cfg, tb = T.RenderConfig(use_nee=True), glossy
+        cfg, tb = dataclasses.replace(cfg, use_nee=True), glossy
     elif change == "mis":
-        cfg = T.RenderConfig(use_nee=True, use_mis=True, camera=dof)
+        cfg = dataclasses.replace(cfg, use_nee=True, use_mis=True,
+                                  camera=dof)
     elif change == "dof":
-        cfg = T.RenderConfig(camera=dof)
+        cfg = dataclasses.replace(cfg, camera=dof)
     elif change == "glossy":
         tb = glossy
     else:
-        # the BVH route (forced, or "auto" above brute_force_max_tris)
-        # renders NEE now; it still refuses what the slice does not run,
-        # before it asks for the tree
         from sfvp_tpu_torch.dispatch import select_render_step
 
         bvh = (dict(traversal="bvh") if change == "bvh"
                else dict(brute_force_max_tris=20))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.12"):
+        bad = dataclasses.replace(dof, focus_dist=0.0)
+        with pytest.raises(ValueError, match="focus_dist"):
+            select_render_step(T.RenderConfig(use_nee=True, camera=bad,
+                                              **bvh), tb)
+        with pytest.raises(ValueError, match="wide BVH"):
             select_render_step(T.RenderConfig(use_nee=True, camera=dof,
                                               **bvh), tb)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.") as e:
-        make_render_step(cfg, tb)
-    assert "A.11" not in str(e.value)
+    img = make_render_step(cfg, tb)(T.init_state(8, 8, "cpu")).accum
+    assert bool(torch.isfinite(img).all()) and float(img.max()) > 0
+    bad = dataclasses.replace(cfg.camera, lens_radius=0.1, focus_dist=0.0)
+    with pytest.raises(ValueError, match="focus_dist"):
+        make_render_step(dataclasses.replace(cfg, camera=bad), tb)

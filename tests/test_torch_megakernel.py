@@ -151,10 +151,11 @@ def test_kernel_params_layout():
     7 floats and 5 float[3], then next-event estimation's 3 ints and 4
     floats, then the environment's and the textures' 9 ints and 6 floats,
     4-byte fields without padding, and their 11 pointers from an 8-byte
-    boundary."""
+    boundary; then the materials' and the thin lens's 2 ints, 2 floats and
+    3 float[3], the struct padded to a multiple of 8 bytes."""
     import ctypes
 
-    assert len(build.Params._fields_) == 26 + 7 + 15 + 11
+    assert len(build.Params._fields_) == 26 + 7 + 15 + 11 + 7
     assert build.Params.t_min.offset == 4 * 14
     assert build.Params.cam_c.offset == 4 * (14 + 7)
     assert build.Params.use_nee.offset == 4 * (14 + 7 + 15)
@@ -163,8 +164,11 @@ def test_kernel_params_layout():
     assert build.Params.env_inv_patch.offset == 4 * (14 + 7 + 15 + 3 + 4 + 9)
     assert build.Params.env_r.offset == 4 * (14 + 7 + 15 + 3 + 4 + 9 + 6)
     assert build.Params.env_r.offset % 8 == 0
-    assert ctypes.sizeof(build.Params) == (
-        4 * (14 + 7 + 15 + 3 + 4 + 9 + 6) + 8 * 11)
+    ext = build.Params.env_r.offset + 8 * 11
+    assert build.Params.use_mat.offset == ext
+    assert build.Params.lens_r.offset == ext + 4 * 2
+    assert build.Params.lens_rn.offset == ext + 4 * 4
+    assert ctypes.sizeof(build.Params) == -(-(ext + 4 * (2 + 2 + 9)) // 8) * 8
 
 
 @pytest.mark.cuda

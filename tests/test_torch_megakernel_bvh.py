@@ -251,9 +251,11 @@ def test_dispatch_bvh_route_needs_the_tree(kw):
 _DOF = dataclasses.replace(T.CameraConfig(), lens_radius=0.1)
 
 
-# The first case kept its id from when NEE (A.11) was refused here: NEE and
-# MIS render on this route now (tests/test_torch_occlusion.py), and turned
-# on they still refuse depth of field, naming A.12 and not A.11.
+# The case ids are kept from when NEE (A.11) and then depth of field (A.12)
+# were refused here: both render on this route now
+# (tests/test_torch_occlusion.py, test_torch_dof.py), and an open lens
+# without a focal plane in front of it (_DOF's focus_dist is 0) raises
+# ValueError, as sfvp_tpu's camera does.
 @pytest.mark.parametrize("kw,item", [
     pytest.param(dict(use_nee=True, use_mis=True, camera=_DOF), "A.12",
                  id="kw0-A.11"),
@@ -261,10 +263,10 @@ _DOF = dataclasses.replace(T.CameraConfig(), lens_radius=0.1)
 ])
 def test_bvh_route_still_refuses_unported_features(kw, item):
     _, tb, _, tw, _ = scene("cornell")
-    with pytest.raises(NotImplementedError, match=item) as e:
+    with pytest.raises(ValueError, match="focus_dist") as e:
         select_render_step(T.RenderConfig(**BASE, traversal="bvh", **kw), tb,
                            wide=tw)
-    assert "A.11" not in str(e.value)
+    assert item not in str(e.value)
 
 
 def test_renderer_builds_the_wide_bvh_once(monkeypatch):
@@ -321,13 +323,13 @@ def test_cli_scene_sizing_and_view_match_jax_cli():
 def test_cli_instanced_still_raises():
     """--scene instanced renders now (tests/test_torch_instances.py); with
     an environment map it raises ValueError, as sfvp_tpu's CLI does, and
-    with an unported feature NotImplementedError naming its item."""
+    with an unported feature (--dist; --lens-radius renders now)
+    NotImplementedError naming its item."""
     with pytest.raises(ValueError, match="env-map"):
         cli.main(["--device", "cpu", "--scene", "instanced", "--env-map",
                   "sky.hdr"])
-    with pytest.raises(NotImplementedError, match="A.12"):
-        cli.main(["--device", "cpu", "--scene", "instanced",
-                  "--lens-radius", "0.1"])
+    with pytest.raises(NotImplementedError, match="A.17"):
+        cli.main(["--device", "cpu", "--scene", "instanced", "--dist"])
 
 
 def test_dispatch_debug_is_quiet_by_default(capsys, monkeypatch):
