@@ -5,7 +5,7 @@
 Phases, each of which raises (exit code 1, no result line) on failure:
   1. device   a CUDA device of compute capability 9.0 (Hopper), and the
               card's name and power limit from nvidia-smi;
-  2. build    nvcc builds the kernels K1-K9 and P2-P5 from
+  2. build    nvcc builds the kernels K1-K9 and P1-P6 from
               sfvp_tpu_torch/csrc/, one nvcc per source in parallel,
               while the host builds the wide BVHs of the 100k sphere
               and the city (phases 7-16);
@@ -253,6 +253,38 @@ sphere's wide BVHs are built by the package's C++ SAH builder, which the
 build phase compiles with g++ beside the kernels (phase 11 prints the
 500k tree's set-up seconds).
 
+The probes P1 and P6 and the measurement utilities (slice 8); phase 1
+also runs the CLI's --devices (utils/diagnostics.py) and checks that it
+reports the card:
+ 33. p1          P1's six variants (stripped, packed, packed_center,
+                 pushall_center, no_sortnet, no_leaf) bitwise against their
+                 twins, planes and per-packet pop counts, on phase 21's
+                 64x64 camera and bounce waves of the 500k sphere, and
+                 stripped on phase 24's 1M-ray first-bounce wave; every
+                 variant timed (CUDA events) on phase 24's four waves
+                 (first bounce, third bounce unsorted and sorted, adaptive)
+                 beside K6 and K3, with its pops (sum, longest packet), ns
+                 an iteration of the longest packet, and the differences
+                 that split K6: K6 - stripped (the leaf queue), stripped -
+                 no_sortnet (thread 0's network), stripped - packed_center
+                 (the key's block minimum), stripped / K3; stripped's
+                 (t, u, v) equal to K3's on at least K3_SAME_TRI of the
+                 rays of each wave, the rays where t is apart counted;
+ 34. p6          P6's ten variants (the probe's v0-v8 and the tenth branch
+                 of its body, v9) over the probe's (16384, 128) normal
+                 table bitwise (NaN for NaN) against their twins at 1, 5,
+                 15 and 2,000 iterations from the zero state and a nonzero
+                 one, then timed over 20,000 iterations queued behind a
+                 sleeping kernel: ns an iteration beside P2's base;
+ 35. profiler    torch.profiler (utils/profiling.py profile_trace) around
+                 one steady Renderer wavefront step over K6 (the 500k
+                 sphere, phase 23's Renderer) and one over K3 (the 100k
+                 sphere): the kernels that took the card's time, by name,
+                 and the card's busy and idle share of the traced window
+                 (the union of its kernel and copy intervals in the Chrome
+                 trace over the host's time of the step), beside an
+                 unprofiled step.
+
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -261,6 +293,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -417,6 +450,15 @@ DIEL_OPS, LENS_OPS = 45, 40
 # held to their twins at P2_FINITE_ITERS, where it is finite
 P2_ROWS, P2_CHECK_ITERS, P2_ITERS, P2_REPS = 8192, 2000, 20_000, 3
 P2_FINITE_ITERS, P2_CHAIN_MODES = (1, 5, 15), ("base", "dmaonly")
+# slice 8: P1 timed P1_REPS launches a wave after a warm-up, P1_SLOW
+# (pushall_center pops every row of the tree in every packet: ~0.1 M pops
+# a packet on the 500k sphere, ~2.5 s a 1M-ray wave) one launch, no
+# warm-up; P6 over the probe's (8 x P6_ROWS, 128) table, held to its twin
+# at P6_CHECK_ITERS, timed over P6_ITERS (queued); the profiler over
+# PROFILE_STEPS steps, its PROFILE_TOP largest kernels printed
+P1_REPS, P1_SLOW = 3, ("pushall_center",)
+P6_ROWS, P6_CHECK_ITERS, P6_ITERS, P6_REPS = 2048, (1, 5, 15, 2000), 20_000, 3
+PROFILE_STEPS, PROFILE_TOP = 1, 12
 
 
 def check(cond, msg):
@@ -429,7 +471,13 @@ def phase(name):
 
 
 def rel_rmse(a, b):
-    return float(torch.sqrt(((a - b) ** 2).mean()) / torch.sqrt((b ** 2).mean()))
+    """utils/metrics.py relative_rmse of two tensors (float64, on the
+    host); an all-zero reference raises, as it has no relative error."""
+    from sfvp_tpu_torch.utils.metrics import relative_rmse
+
+    ref = b.detach().double().cpu().numpy()
+    check(bool(np.any(ref)), "relative RMSE against an all-zero reference")
+    return relative_rmse(a.detach().double().cpu().numpy(), ref)
 
 
 def cuda_ms(fn, reps, warm=True):
@@ -483,6 +531,16 @@ def device_phase():
     card = smi.stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    # the CLI's device report (utils/diagnostics.py)
+    from sfvp_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["--devices"])
+    print(f"  cli --devices: {out.getvalue().strip()}")
+    check(rc == 0 and "'platform': 'gpu'" in out.getvalue()
+          and torch.cuda.get_device_name(0) in out.getvalue(),
+          f"cli --devices printed {out.getvalue()!r}")
     return card
 
 
@@ -1003,18 +1061,21 @@ def counters():
     from sfvp_tpu_torch.kernels.bvh_tlas import (
         two_level_occlusion, two_level_trace)
     from sfvp_tpu_torch.kernels.envfetch import env_fetch, env_fetch_ablate
+    from sfvp_tpu_torch.kernels.itercost import iter_cost
     from sfvp_tpu_torch.kernels.leafprobe import leaf_probe, smem_dma
     from sfvp_tpu_torch.kernels.megakernel import wave_render
     from sfvp_tpu_torch.kernels.megakernel_bvh import (
         bvh_regen_render, tlas_regen_render)
     from sfvp_tpu_torch.kernels.megakernel_regen import regen_render
+    from sfvp_tpu_torch.kernels.stripped_trace import stripped_trace
 
     return {"K1": regen_render, "K2": wave_render, "K3": packet_trace,
             "K4": packet_occlusion, "K5": bvh_regen_render,
             "K6": packet_trace2, "K7": two_level_trace,
             "K8": two_level_occlusion,
             "K9": tlas_regen_render, "P3": env_fetch, "P4": env_fetch_ablate,
-            "P2": leaf_probe, "P5": smem_dma}
+            "P2": leaf_probe, "P5": smem_dma, "P1": stripped_trace,
+            "P6": iter_cost}
 
 
 def only(**launched):
@@ -1928,7 +1989,7 @@ def k6_twin_phase(big, city):
               f"{rays.shape[1]} rays")
         check(frac >= K3_SAME_TRI, f"K6 and K3 {label}: same triangle on "
                                    f"{frac}")
-    return worst
+    return worst, {"camera": camera, "bounce": bounce}
 
 
 def adaptive_cross_phase(big, city):
@@ -2068,7 +2129,7 @@ def adaptive_main_path_phase(tmp, city):
               f"(CUDA events) of {step_ms:.2f} ms (host), "
               f"{in_k[fn] / step_ms:.1%}")
         check_image(name, img, BVH_H, BVH_W)
-    return runs
+    return runs, first["r"]
 
 
 def same_tree(r, cfg):
@@ -2171,7 +2232,9 @@ def k6_timing_phase(big):
           f"triangle {same:.6f}")
     check(same >= K3_SAME_TRI, f"K6 and K3 sorted: same triangle on {same}")
     times["third bounce"] = {"K6": (ms,) + b3, "K3": (ms3,) + b3}
-    return times, worst
+    waves = {"first bounce": first, "third bounce unsorted": third_unsorted,
+             "third bounce": third, "adaptive": adaptive}
+    return times, worst, waves
 
 
 # ---- slice 6: environment maps and map_Kd textures ----
@@ -3224,6 +3287,343 @@ def probe_phase():
     return times, worst, ns
 
 
+# ---- slice 8: the probes P1 and P6, the profiler ----
+
+def check_variant(label, variant, out, cnt, s_out, s_cnt, k3):
+    """Hold a P1 variant's run on a full wave, which has no twin run, to
+    stripped's on the same wave and to K3's: packed pushes what stripped
+    pushes in the same order (the same bits and counts); packed_center,
+    pushall_center and no_sortnet walk in another order to the same hits
+    (hit or miss as stripped, t as K3's on K3_SAME_TRI of the rays);
+    no_leaf tests no triangle (t inf everywhere) and prunes nothing (no
+    packet pops fewer rows than stripped's)."""
+    if variant == "packed":
+        ok = (torch.equal(out.view(torch.int32), s_out.view(torch.int32))
+              and torch.equal(cnt, s_cnt))
+        what = "the same (t, u, v) bits and counts as stripped"
+    elif variant == "no_leaf":
+        finite, short = int(torch.isfinite(out[0]).sum()), int(
+            (cnt < s_cnt).sum())
+        ok = finite == 0 and short == 0
+        what = (f"t finite on {finite} rays, {short} packets popping fewer "
+                "rows than stripped's")
+    else:
+        apart = int((torch.isinf(out[0]) != torch.isinf(s_out[0])).sum())
+        same_t = float(((out[0] == k3[0]) | (torch.isinf(out[0])
+                                             & torch.isinf(k3[0])))
+                       .float().mean())
+        ok = apart == 0 and same_t >= K3_SAME_TRI
+        what = (f"hit or miss apart from stripped's on {apart} rays, t as "
+                f"K3's on {same_t:.6f} of the rays")
+    print(f"  P1 {variant} {label}: {what}")
+    check(ok, f"P1 {variant} on the {label} wave: {what}")
+
+
+def stripped_phase(big, twin_waves, waves, k6_times):
+    """Phase 33: P1's six variants held bitwise (planes and per-packet
+    counts) to their twins on phase 21's 64x64 camera and bounce waves,
+    stripped also on the 1M-ray first-bounce wave; stripped's hits held to
+    K3's on the four full waves of phase 24, and each other variant to
+    stripped's and K3's there (``check_variant``); every variant timed on
+    those waves beside K6 and K3 (CUDA events), and K6 split by their
+    differences."""
+    from sfvp_tpu_torch.kernels.bvh_packet import packet_trace
+    from sfvp_tpu_torch.kernels.bvh_packet2 import packet_trace2
+    from sfvp_tpu_torch.kernels.stripped_trace import (
+        VARIANTS, stripped_trace, stripped_trace_plain)
+
+    phase(f"p1: the stripped packet walk's {len(VARIANTS)} variants against "
+          f"their twins on {K6_TWIN_SIZE}^2-ray camera and bounce waves of "
+          f"the {BIG_TRIS // 1000}k sphere, stripped on its {BVH_W}x{BVH_H} "
+          "first-bounce wave; each timed on phase 24's four waves beside K6 "
+          "and K3")
+    cfg, dw = big["cfg"], big["dw"]
+    t_min = cfg.t_min
+    plain, worst = {}, 0.0
+    # the twins walk the 64x64 waves faster on the host CPU (equal bits),
+    # but for pushall_center's whole-tree test of every row (on the card)
+    dw_cpu = dw._replace(nodes=dw.nodes.cpu(), tris=dw.tris.cpu())
+
+    def abs_err(got, exp):
+        return float(torch.where(got == exp, 0.0, (got - exp).abs()).max())
+
+    for variant in VARIANTS:
+        for label, rays in twin_waves.items():
+            got, cnt = stripped_trace(dw, t_min, rays, variant)
+            on_card = variant in P1_SLOW
+            t0 = time.perf_counter()
+            exp, ecnt = stripped_trace_plain(
+                dw if on_card else dw_cpu, t_min,
+                rays if on_card else rays.cpu(), variant)
+            exp, ecnt = exp.to(got.device), ecnt.to(got.device)
+            ms = (time.perf_counter() - t0) * 1e3
+            plain[f"{variant} {label}"] = ms
+            apart = int((got != exp).any(0).sum())
+            worst = max(worst, abs_err(got, exp))
+            print(f"  P1 {variant} {label}: {rays.shape[1]} rays, "
+                  f"{int(torch.isfinite(exp[0]).sum())} hits, pops "
+                  f"{ecnt.tolist()}; {apart} rays apart, counts equal "
+                  f"{torch.equal(cnt, ecnt)}; twin {ms:.1f} ms (host "
+                  f"clock, {'card' if on_card else 'host CPU'})")
+            check(apart == 0 and torch.equal(cnt, ecnt),
+                  f"P1 {variant} {label} disagrees with its twin: {apart} "
+                  f"rays, counts {cnt.tolist()} vs {ecnt.tolist()}")
+    rays = waves["first bounce"]
+    got, cnt = stripped_trace(dw, t_min, rays)
+    counts = {}
+    plain_first, (exp, ecnt) = cuda_ms(lambda: stripped_trace_plain(
+        dw, t_min, rays, counts=counts), 1, warm=False)
+    apart = int((got != exp).any(0).sum())
+    worst = max(worst, abs_err(got, exp))
+    print(f"  P1 stripped first bounce: {rays.shape[1]} rays, {apart} rays "
+          f"apart from the twin, counts equal {torch.equal(cnt, ecnt)}; "
+          f"twin {plain_first:.1f} ms, pops {counts}")
+    check(apart == 0 and torch.equal(cnt, ecnt),
+          f"P1 stripped on the first-bounce wave disagrees with its twin: "
+          f"{apart} rays")
+    nbytes = tree_nbytes(big["wide"]) + rays.shape[1] * (7 + 3) * 4
+    union = bound(packet_ops(counts), nbytes)
+    times, report = {}, {}
+    for label, rays in waves.items():
+        k6_ms, _ = cuda_ms(lambda: packet_trace2(dw, t_min, rays), P1_REPS)
+        k3_ms, k3 = cuda_ms(lambda: packet_trace(dw, t_min, rays), P1_REPS)
+        b3 = k6_times[label if label != "third bounce"
+                      else "third bounce unsorted"]["K3"][2:4]
+        row = {"K6_ms": k6_ms, "K3_ms": k3_ms, "bound_ms": b3[0]}
+        for variant in VARIANTS:
+            slow = variant in P1_SLOW
+            ms, (out, cnt) = cuda_ms(lambda: stripped_trace(
+                dw, t_min, rays, variant), 1 if slow else P1_REPS,
+                warm=not slow)
+            pops = cnt.to(torch.int64)
+            longest = int(pops.max())
+            row[variant] = {"ms": ms, "pops_sum": int(pops.sum()),
+                            "pops_max": longest,
+                            "ns_per_iteration": ms * 1e6 / longest}
+            print(f"  P1 {label:21s} {variant:14s} {ms:9.3f} ms; pops sum "
+                  f"{int(pops.sum())}, longest packet {longest}: "
+                  f"{ms * 1e6 / longest:.1f} ns an iteration")
+            if variant != "stripped":
+                check_variant(label, variant, out, cnt, s_out, s_cnt, k3)
+                continue
+            s_out, s_cnt = out, cnt
+            # K3's t, u, v are the same bits where the triangle is the same
+            t_apart = torch.nonzero(out[0] != k3[0]).squeeze(1)
+            miss = torch.isinf(out[0]) & torch.isinf(k3[0])
+            same = float((miss | (out == k3[:3]).all(0)).float().mean())
+            row["t_apart_from_K3"] = int(t_apart.numel())
+            row["same_hit_as_K3"] = same
+            shown = [(int(i), float(out[0, i]), float(k3[0, i]))
+                     for i in t_apart[:5]]
+            print(f"  P1 stripped {label}: t apart from K3's on "
+                  f"{t_apart.numel()} rays (ray, t, K3's t: {shown}); the "
+                  f"same (t, u, v) as K3 on {same:.6f} of the rays")
+            check(same >= K3_SAME_TRI, f"P1 stripped and K3 {label}: the "
+                                       f"same hit on {same}")
+            times[label] = (ms, plain_first if label == "first bounce"
+                            else None) + tuple(b3)
+        s = row["stripped"]["ms"]
+        row["split"] = {
+            "K6 - stripped (the leaf queue)": k6_ms - s,
+            "stripped - no_sortnet (thread 0's network)":
+                s - row["no_sortnet"]["ms"],
+            "stripped - packed_center (the key's block minimum)":
+                s - row["packed_center"]["ms"],
+            "stripped / K3 (packet against per-ray)": s / k3_ms}
+        print(f"  P1 {label}: K6 {k6_ms:.3f} ms, K3 {k3_ms:.3f} ms, bound "
+              f"{b3[0]:.4f} ms; " + "; ".join(
+                  f"{k} {v:.3f}" for k, v in row["split"].items()))
+        report[label] = row
+    return times, worst, {"per_wave": report,
+                          "union_walk_bound_ms": union[0],
+                          "plain_ms_64x64": plain}
+
+
+def iter_cost_phase(p2_ns):
+    """Phase 34: P6's ten variants held to their twins (bit for bit, NaN
+    for NaN) at 1, 5, 15 and 2,000 iterations from the probe's zero state
+    and from a nonzero one, over the probe's (16384, 128) normal table;
+    timed over 20,000 iterations queued behind a sleeping kernel; ns per
+    iteration beside P2's base."""
+    from sfvp_tpu_torch.kernels import itercost
+
+    phase(f"p6: the walk-loop iteration probe's {len(itercost.VARIANTS)} "
+          f"variants, held to their twins at {P6_CHECK_ITERS} iterations "
+          f"from a zero and a nonzero state, timed over {P6_ITERS} (queued)")
+    table_cpu = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(8 * P6_ROWS, 128)).astype(np.float32))
+    acc_cpu = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(8, 128)).astype(np.float32))
+    table, acc = table_cpu.to(DEVICE), acc_cpu.to(DEVICE)
+    times, ns, worst = {}, {}, 0.0
+    for variant in itercost.VARIANTS:
+        plain = 0.0
+        for iters in P6_CHECK_ITERS:
+            for a_dev, a_cpu in ((None, None), (acc, acc_cpu)):
+                got = itercost.iter_cost(table, variant, iters, a_dev).cpu()
+                t0 = time.perf_counter()
+                exp = itercost.iter_cost_plain(table_cpu, variant, iters,
+                                               a_cpu)
+                if a_cpu is None:
+                    plain = (time.perf_counter() - t0) * 1e3
+                nan = torch.isnan(exp)
+                check(torch.equal(torch.isnan(got), nan) and torch.equal(
+                    got[~nan].view(torch.int32), exp[~nan].view(torch.int32)),
+                    f"P6 {variant} over {iters} iterations "
+                    f"({'zero' if a_cpu is None else 'nonzero'} state) "
+                    "disagrees with its twin")
+                same = (got == exp) | (nan & torch.isnan(got))
+                worst = max(worst, float(torch.where(
+                    same, 0.0, (got - exp).abs()).max()))
+        ms = queued_ms(lambda: itercost.iter_cost(table, variant, P6_ITERS),
+                       P6_REPS)
+        ns[variant] = ms * 1e6 / P6_ITERS
+        ops, nbytes = iter_cost_work(variant, P6_ITERS, P6_ROWS)
+        times[variant] = (ms, plain) + bound(ops, nbytes)
+        print(f"  P6 {variant:15s} equal to its twin; {ms:.4f} ms a launch "
+              f"of {P6_ITERS}, {ns[variant]:.2f} ns an iteration (P2 base "
+              f"{p2_ns['base']:.2f}, extract {p2_ns['extract']:.2f}); twin "
+              f"{plain:.1f} ms over {P6_CHECK_ITERS[-1]}; bound "
+              f"{times[variant][2]:.6f} ms ({times[variant][3]}: {ops} "
+              f"operations, {nbytes} bytes)")
+    return times, ns, worst
+
+
+# P6's lanes of a row that each body reads (csrc/iter_cost.cu): v4 reads
+# lanes 0..5 of 8 rows, the others lanes 0..n-1 of one row
+P6_LANES = {"v0_loop": 128, "v1_scalars48": 48, "v2_scalars128": 128,
+            "v3_slice_bcast": 48, "v4_rowslice8": 8 * 6, "v5_cond": 128,
+            "v6_reduce16": 128, "v7_when8": 8, "v8_sortnet": 16, "v9": 128}
+# FP32 operations of an iteration on the (8, 128) state (E elements):
+# what the function needs once, not the kernel's repeats (v1's sum in
+# every thread, v6's 8 equal reductions)
+P6_OPS = {"v0_loop": (1, 0), "v1_scalars48": (1, 48),
+          "v2_scalars128": (1, 128), "v3_slice_bcast": (2 * 48, 0),
+          # the state's max; 3 slab pairs of 2 subtracts, 2 multiplies, a
+          # min, a max and 3 for tf; the test and select; a row min and sum;
+          # two adds
+          "v4_rowslice8": (1 + 3 * 9 + 2 + 2 + 2, 0),
+          "v5_cond": (2, 0),
+          # multiply, test, select; one min and one any; the add; 8 x 2
+          # scalar adds
+          "v6_reduce16": (6, 16),
+          # 8 tests and 8 adds of thread 0, the add
+          "v7_when8": (1, 16),
+          # 19 comparators of a test and 4 selects, 16 adds; two adds
+          "v8_sortnet": (2, 19 * 5 + 16),
+          # multiply, test, select, a row min and max, two adds
+          "v9": (7, 0)}
+
+
+def iter_cost_work(variant, iters, m):
+    """(FP32 operations, bytes) of P6's ``variant`` over ``iters``
+    iterations of an (8 m, 128) table: the lanes its body reads of the
+    distinct rows the run pops (row max(i % m, 0) of i = iters .. 1), each
+    read once; the initial state read, the state written, and the output
+    buffer v4 reads as its rays."""
+    rows = len({max(i % m, 0) for i in range(1, iters + 1)})
+    state = 8 * 128 * 4
+    nbytes = rows * P6_LANES[variant] * 4 + 2 * state
+    if variant == "v4_rowslice8":
+        nbytes += state
+    per_elem, scalar = P6_OPS[variant]
+    return iters * (per_elem * 8 * 128 + scalar), nbytes
+
+
+def device_activity(trace_path):
+    """The card's activity in a Chrome trace: its busy microseconds (the
+    union of its kernel, copy and set intervals), their number, each
+    name's (microseconds, count), largest first, and the spans left out,
+    by category. A span counts only if the card ran it: a kernel, copy or
+    set category, a stream and a launch's correlation id in its args, and
+    no operator's name (``aten::``), so no operator's span that wraps its
+    kernels is counted beside them."""
+    kept, dropped = [], {}
+    with open(trace_path) as f:
+        for e in json.load(f)["traceEvents"]:
+            if "dur" not in e:
+                continue
+            args = e.get("args") or {}
+            if (e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                    and "stream" in args and "correlation" in args
+                    and not e["name"].startswith("aten::")):
+                kept.append(e)
+            else:
+                cat = str(e.get("cat"))
+                dropped[cat] = dropped.get(cat, 0) + 1
+    events = kept
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in events:
+        us, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (us + e["dur"], n + 1)
+    return (busy, len(events),
+            sorted(by_name.items(), key=lambda kv: -kv[1][0]), dropped)
+
+
+def profiler_phase(tmp, r500, sphere):
+    """Phase 35: torch.profiler (utils/profiling.py profile_trace) around
+    steady wavefront steps: the Renderer's over K6 on the 500k sphere and
+    over K3 on the 100k sphere; the kernels that took the card's time, by
+    name, and the card's busy and idle share of the traced window (host
+    clock), all read from the Chrome trace the profiler writes."""
+    from sfvp_tpu_torch import Renderer
+    from sfvp_tpu_torch.utils.profiling import profile_trace
+
+    phase(f"profiler: torch.profiler around {PROFILE_STEPS} steady "
+          f"wavefront steps over K6 ({BIG_TRIS // 1000}k sphere) and over "
+          f"K3 ({SPHERE_TRIS // 1000}k sphere) at {BVH_W}x{BVH_H}, "
+          f"{BVH_SPP} spp")
+    cfg = dataclasses.replace(sphere["cfg"], megakernel_regen=False)
+    report = {}
+    for name, r in (("K6 route, 500k sphere", r500),
+                    ("K3 route, 100k sphere", Renderer(cfg, sphere["scene"],
+                                                       DEVICE))):
+        r.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.step()
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t0) * 1e3
+        log_dir = os.path.join(tmp, name.split(",")[0].replace(" ", "_"))
+        t_trace = time.perf_counter()
+        with profile_trace(log_dir):
+            t0 = time.perf_counter()
+            r.step(PROFILE_STEPS)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        t_trace = time.perf_counter() - t_trace
+        busy_us, n_spans, by_name, dropped = device_activity(
+            os.path.join(log_dir, "trace.json"))
+        device_us = sum(us for us, _ in dict(by_name).values())
+        check(busy_us > 0, f"{name}: torch.profiler recorded no device time")
+        print(f"  {name}: spans left out of the card's time, by category: "
+              f"{dict(sorted(dropped.items()))}")
+        top = [(key, n, us / 1e3) for key, (us, n) in by_name[:PROFILE_TOP]]
+        report[name] = {
+            "step_ms_unprofiled": bare_ms, "steps": PROFILE_STEPS,
+            "window_ms": window_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / window_us,
+            "device_idle_share": 1.0 - busy_us / window_us,
+            "device_kernels_ms": device_us / 1e3, "device_spans": n_spans,
+            "spans_left_out": dropped,
+            "trace_s": t_trace, "top_device_ops": top}
+        print(f"  {name}: an unprofiled step {bare_ms:.2f} ms; "
+              f"{PROFILE_STEPS} profiled steps {window_us / 1e3:.2f} ms, the "
+              f"card busy {busy_us / 1e3:.2f} ms of it "
+              f"({busy_us / window_us:.1%}, idle "
+              f"{1.0 - busy_us / window_us:.1%}) in {n_spans} kernels and "
+              f"copies; the trace and its export took {t_trace:.1f} s; top "
+              "kernels and copies (ms, calls, name):")
+        for key, count, ms in top:
+            print(f"    {ms:10.3f} ms {count:6d}x {key[:100]}")
+    return report
+
+
 def env_nbytes(args):
     """Bytes of a render's environment map, its distribution and its
     texture pool, each read once."""
@@ -3305,12 +3705,17 @@ def main() -> int:
     tlas_worst = {k: max(v, tlas_main_worst[k]) for k, v in tlas_worst.items()}
     del field, lit
 
-    k6_worst = k6_twin_phase(big, city)
+    k6_worst, k6_twin_waves = k6_twin_phase(big, city)
     adaptive_cross_phase(big, city)
     with tempfile.TemporaryDirectory() as tmp:
-        k6_runs = adaptive_main_path_phase(tmp, city)
-    k6_times, k6_time_worst = k6_timing_phase(big)
-    del big, city
+        k6_runs, r500 = adaptive_main_path_phase(tmp, city)
+    k6_times, k6_time_worst, k6_waves = k6_timing_phase(big)
+    p1_times, p1_worst, p1_report = stripped_phase(big, k6_twin_waves,
+                                                   k6_waves, k6_times)
+    del k6_twin_waves, k6_waves
+    with tempfile.TemporaryDirectory() as tmp:
+        profile_report = profiler_phase(tmp, r500, sphere)
+    del big, city, r500
 
     with tempfile.TemporaryDirectory() as tmp:
         phase("env/tex set-up: the sky and sun maps, the textured "
@@ -3345,6 +3750,14 @@ def main() -> int:
     probe_times, probe_worst, probe_ns = probe_phase()
     probe_launches = {k: sum(r[k] for r in mat_runs.values())
                       for k in ("P2", "P5")}
+    p6_times, p6_ns, p6_worst = iter_cost_phase(probe_ns)
+    # P1 and P6 run on no render path: their launches over every run of the
+    # main paths, which only() holds to 0
+    every_run = [launches, *bvh_runs.values(), *nee_runs.values(),
+                 *tlas_runs.values(), *k6_runs.values(), *env_runs.values(),
+                 *mat_runs.values()]
+    probe_launches.update({k: sum(r[k] for r in every_run)
+                           for k in ("P1", "P6")})
 
     env_launches = {k: sum(env_runs[r][k] for r in (
         "cli_env", "cli_env_nee", "cli_sphere_env", *rows)) for k in (
@@ -3519,7 +3932,34 @@ def main() -> int:
                           probe_launches["P5"], probe_worst["P5"],
                           probe_times["P5"]),
              plain_per="twin on the host CPU"),
-    ]}
+        # P1 runs on no render path; its bound is K3's on the same rays (it
+        # computes K3's function), its own union walk's a diagnostic
+        dict(kernel_entry(
+            "stripped_trace (P1)", "sfvp_tpu_torch/csrc/stripped_trace.cu",
+            "benchmarks/probe_carry.py:242",
+            f"stripped variant, launch on the {BVH_W}x{BVH_H} first-bounce "
+            f"wave ({BIG_TRIS // 1000}k sphere)", probe_launches["P1"],
+            p1_worst, p1_times["first bounce"],
+            **{label.replace(" ", "_"): (
+                f"stripped variant, launch on the {label} wave (no twin "
+                "run on it)",
+                probe_launches["P1"], p1_worst, times)
+               for label, times in p1_times.items()
+               if label != "first bounce"}),
+            plain_per=f"twin on the {BVH_W}x{BVH_H} first-bounce wave, on "
+                      "the card",
+            **p1_report),
+        dict(kernel_entry(
+            "iter_cost (P6)", "sfvp_tpu_torch/csrc/iter_cost.cu",
+            "benchmarks/probe_iter_cost.py:142",
+            f"v0_loop, launch of {P6_ITERS} iterations, one block (latency "
+            "probe)", probe_launches["P6"], p6_worst, p6_times["v0_loop"],
+            **{v: (f"{v}, launch of {P6_ITERS} iterations",
+                   probe_launches["P6"], p6_worst, p6_times[v])
+               for v in p6_times if v != "v0_loop"}),
+            plain_per=f"twin over {P6_CHECK_ITERS[-1]} iterations, host CPU",
+            ns_per_iteration=p6_ns),
+    ], "profiler": profile_report}
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -20,11 +20,12 @@ Example:
 
 An OBJ with ``vt`` and ``map_Kd`` renders textured; an MTL's ``Pr`` with a
 nonzero ``Ks`` makes a GGX glossy face, ``illum`` 4 or more with ``Ni`` > 1
-a smooth dielectric, ``illum`` 3 with a nonzero ``Ks`` a mirror. --dist,
-not ported yet, raises NotImplementedError; --env-map with --scene
-instanced raises ValueError, as in sfvp_tpu. With --adaptive, --log writes one JSONL record
-a step (integrate/adaptive.py AdaptiveRenderer.run) and --frame-every is
-ignored, as in sfvp_tpu.
+a smooth dielectric, ``illum`` 3 with a nonzero ``Ks`` a mirror. --dist
+and --preview-port, not ported yet, raise NotImplementedError;
+--devices prints the device report (utils/diagnostics.py) and exits;
+--env-map with --scene instanced raises ValueError, as in sfvp_tpu. With
+--adaptive, --log writes one JSONL record a step (integrate/adaptive.py
+AdaptiveRenderer.run) and --frame-every is ignored, as in sfvp_tpu.
 """
 
 from __future__ import annotations
@@ -89,24 +90,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--focus-dist", type=float, default=0.0,
                    help="distance of the focal plane along the view axis "
                         "(default with an open lens: the camera target)")
+    p.add_argument("--devices", action="store_true",
+                   help="print the device report and exit")
     # not ported yet: raises NotImplementedError when used
     p.add_argument("--dist", action="store_true")
+    p.add_argument("--preview-port", type=int, default=None)
     return p
 
 
 _NOT_PORTED = {
     "dist": "multi-device rendering (ROADMAP.md A.17)",
+    "preview_port": "the live preview server (ROADMAP.md A.18)",
 }
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.devices:
+        from .utils.diagnostics import print_report
+
+        print_report()
+        return 0
     if args.obj is None and args.scene == "instanced" and args.env_map:
         raise ValueError(
             "--scene instanced is not combinable with --env-map (set "
             "env_map on a member Scene or flatten the instances)")
     for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag) not in (None, False, 0.0):
+        value = getattr(args, flag)
+        if value is not None and value is not False:  # --preview-port 0 too
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: {what} is not ported to "
                 "sfvp_tpu_torch yet")

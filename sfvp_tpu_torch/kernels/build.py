@@ -308,12 +308,21 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p]
     lib.sfvp_smem_dma.argtypes = [ctypes.c_void_p] * 3
+    # P1: tree, rays, n, variant, counts, out, stream
+    lib.sfvp_stripped_trace.argtypes = [
+        ctypes.POINTER(WideParams), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    # P6: table, M, iterations, variant, acc0, out, stream
+    lib.sfvp_iter_cost.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     for fn in (lib.sfvp_wave_render, lib.sfvp_regen_render,
                lib.sfvp_bvh_regen_render, lib.sfvp_tlas_regen_render,
                lib.sfvp_bvh_trace, lib.sfvp_bvh_occlusion,
                lib.sfvp_tlas_trace, lib.sfvp_tlas_occlusion,
                lib.sfvp_packet_trace2, lib.sfvp_env_fetch,
-               lib.sfvp_leaf_probe, lib.sfvp_smem_dma):
+               lib.sfvp_leaf_probe, lib.sfvp_smem_dma,
+               lib.sfvp_stripped_trace, lib.sfvp_iter_cost):
         fn.restype = ctypes.c_int
     return lib
 
@@ -390,6 +399,18 @@ def launch_packet_trace2(wp: "WideParams", rays, leaf_q: int):
     return _launch_wave("sfvp_packet_trace2", wp, rays, torch.empty(
         (_payload_planes(wp, rays), rays.shape[1]), dtype=torch.float32,
         device=rays.device), leaf_q)
+
+
+def launch_stripped_trace(wp: "WideParams", rays, variant: int):
+    """P1: (7, N) ray planes in; (3, N) planes t, u, v and the (packets,)
+    int32 pops of each packet of 1024 rays out."""
+    n = rays.shape[1]
+    out = torch.empty((3, n), dtype=torch.float32, device=rays.device)
+    counts = torch.empty(-(-n // 1024), dtype=torch.int32,
+                         device=rays.device)
+    _launch_wave("sfvp_stripped_trace", wp, rays, out, variant,
+                 counts.data_ptr())
+    return out, counts
 
 
 def launch_bvh_occlusion(wp: "WideParams", rays):
