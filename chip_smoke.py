@@ -386,6 +386,10 @@ CROSS_SIZE, CITY_ADAPT_STEPS = 256, 2
 # are held on the same triangle on K3_SAME_SIZE^2 waves, where one ray
 # apart is below the 1e-4 share K3_SAME_TRI allows
 K6_TWIN_SIZE, K3_SAME_SIZE = 64, 128
+# K6's leaf ring at its extremes on phase 21's camera and bounce waves: one
+# slot refilled every iteration, spilled leaves re-enqueued and fetched
+# late, the default, and the largest ring (128 KB of shared memory)
+K6_LEAF_QS = (1, 2, 64, 256)
 ADAPT_CLI = ["--scene", "sphere", "--scene-tris", str(BIG_TRIS),
              "--sampling", "cosine", "--rr", "--spp", str(BVH_SPP),
              "--adaptive", str(ADAPT_FRAC), "--steps", str(ADAPT_STEPS)]
@@ -1900,20 +1904,40 @@ def same_triangle(a, b):
     return float(same.float().mean())
 
 
-def compare_k6(label, dw, t_min, rays, leaf_q=64, got=None, exp=None):
+def host_copy(dw):
+    """A DeviceWide's tables on the host CPU, for a twin of a small wave:
+    its passes are many small ops, which the host runs faster than it
+    issues them to the card (the same bits)."""
+    return dw._replace(nodes=dw.nodes.cpu(), tris=dw.tris.cpu(),
+                       tris_aux=None if dw.tris_aux is None
+                       else dw.tris_aux.cpu())
+
+
+def compare_k6(label, dw, t_min, rays, leaf_q=64, got=None, exp=None,
+               host=None):
     """Hold K6's planes against its twin's: equal on every plane of every
-    ray. Returns the largest absolute difference (0)."""
+    ray; ``host``: the tree's ``host_copy``, where the twin runs. Returns
+    the largest absolute difference (0)."""
     from sfvp_tpu_torch.kernels.bvh_packet2 import (
         packet_trace2, packet_trace2_plain)
 
     if got is None:
         got = packet_trace2(dw, t_min, rays, leaf_q)
+    walk = ""
     if exp is None:
-        exp = packet_trace2_plain(dw, t_min, rays, leaf_q)
+        counts = {}
+        t0 = time.perf_counter()
+        exp = packet_trace2_plain(host or dw, t_min,
+                                  rays if host is None else rays.cpu(),
+                                  leaf_q, counts).to(got.device)
+        walk = (f", packets' iterations "
+                f"{counts['per_packet_iterations']}, twin "
+                f"{(time.perf_counter() - t0) * 1e3:.0f} ms (host clock, "
+                f"{'card' if host is None else 'host CPU'})")
     apart = int((got != exp).any(0).sum())
     print(f"  K6 {label:14s} {rays.shape[1]} rays, "
           f"{int(torch.isfinite(exp[0]).sum())} hits, leaf_q {leaf_q}: "
-          f"{apart} rays with a plane apart")
+          f"{apart} rays with a plane apart{walk}")
     check(apart == 0, f"K6 {label} disagrees with its twin on {apart} rays")
     return 0.0
 
@@ -1943,9 +1967,9 @@ def k6_twin_phase(big, city):
 
     size = K6_TWIN_SIZE
     phase(f"k6 twins: K6 vs its twin on {size}^2-ray waves of the "
-          f"{BIG_TRIS // 1000}k sphere (camera, bounce, random, partial, "
-          "active, camera with leaf_q 2) and the city's NEE shadow wave "
-          "(stream_tris="
+          f"{BIG_TRIS // 1000}k sphere (camera and bounce with leaf_q "
+          f"{', '.join(map(str, K6_LEAF_QS))}; random, partial, active) and "
+          "the city's NEE shadow wave (stream_tris="
           f"True); K6 and K3 on the same triangle on {K3_SAME_SIZE}^2-ray "
           "camera and bounce waves")
     cfg, dw, wide = big["cfg"], big["dw"], big["wide"]
@@ -1974,12 +1998,17 @@ def k6_twin_phase(big, city):
                                                stream_tris=True),
                            city, (0,), shadow=True)[0]
     worst = 0.0
+    # the twins walk these small waves on the host CPU (host_copy)
+    host, city_host = host_copy(dw), host_copy(city["dw"])
     for label, tree, rays, leaf_q in (
-            ("camera", dw, camera, 64), ("bounce", dw, bounce, 64),
+            *(("camera", dw, camera, q) for q in K6_LEAF_QS),
+            *(("bounce", dw, bounce, q) for q in K6_LEAF_QS),
             ("random", dw, random, 64), ("partial", dw, partial, 64),
-            ("active", dw, active, 64), ("camera", dw, camera, 2),
+            ("active", dw, active, 64),
             ("city shadow", city["dw"], shadow, 64)):
-        worst = max(worst, compare_k6(label, tree, cfg.t_min, rays, leaf_q))
+        worst = max(worst, compare_k6(
+            label, tree, cfg.t_min, rays, leaf_q,
+            host=city_host if tree is city["dw"] else host))
     wave = dict(width=K3_SAME_SIZE, height=K3_SAME_SIZE, spp_per_step=1)
     whole = capture_waves(dataclasses.replace(cfg, **wave), big, (0, 1))
     for label, rays in zip(("camera", "bounce"), whole):
@@ -2158,18 +2187,40 @@ def packet_ops(counts):
             + counts["leaf_pops"] * 1024 * 8 * TRI_OPS_ROWS)
 
 
+def k6_ptxas():
+    """ptxas's report on K6 (csrc/packet_trace2.cu) from the build's log:
+    its registers, spills and static shared memory, one line each."""
+    from sfvp_tpu_torch.kernels import build
+
+    log = build.library_path().with_suffix(".log")
+    lines = log.read_text().splitlines() if log.exists() else []
+    for k, line in enumerate(lines):
+        if "Compiling entry" in line and "packet_trace2_kernel" in line:
+            return [x.strip() for x in lines[k + 1:k + 4]
+                    if "Compiling entry" not in x]
+    return []
+
+
 def k6_timing_phase(big):
     from sfvp_tpu_torch.integrate.adaptive import (
         init_adaptive_state, make_adaptive_steps)
-    from sfvp_tpu_torch.kernels import bvh_packet2
+    from sfvp_tpu_torch.kernels import build, bvh_packet2
     from sfvp_tpu_torch.kernels.bvh_packet import packet_trace, packet_trace_plain
     from sfvp_tpu_torch.kernels.bvh_packet2 import (
-        packet_trace2, packet_trace2_plain)
+        LEAF_Q, packet_trace2, packet_trace2_plain)
 
     phase(f"k6 times and twin check on the {BIG_TRIS // 1000}k sphere: the "
-          f"swizzled {BVH_W}x{BVH_H} first- and third-bounce waves and an "
-          f"adaptive wave ({ADAPT_FRAC} of the {ADAPT_TILE}^2 tiles), K6 "
-          "beside K3, CUDA events")
+          f"swizzled {BVH_W}x{BVH_H} first- and third-bounce waves (sorted "
+          f"and not) and an adaptive wave ({ADAPT_FRAC} of the "
+          f"{ADAPT_TILE}^2 tiles), K6 beside K3, CUDA events; ns an "
+          "iteration of K6's longest packet (its twin's count)")
+    ptxas = k6_ptxas()
+    smem = build.packet_smem_plan(LEAF_Q)
+    print(f"  K6 ptxas: {' | '.join(ptxas)}; dynamic shared memory {smem} "
+          f"bytes at leaf_q {LEAF_Q} ({build.packet_smem_plan(build.MAX_LEAF_Q)}"
+          f" at {build.MAX_LEAF_Q})")
+    check(bool(ptxas), "no ptxas report on packet_trace2_kernel in the "
+                       "build's log")
     cfg, dw, wide = big["cfg"], big["dw"], big["wide"]
     one = dataclasses.replace(cfg, width=BVH_W, height=BVH_H, spp_per_step=1,
                               megakernel_regen=False)
@@ -2193,6 +2244,7 @@ def k6_timing_phase(big):
         counts = {}
         plain, exp = cuda_ms(lambda: packet_trace2_plain(
             dw, cfg.t_min, rays, counts=counts), 1, warm=False)
+        longest = max(counts.pop("per_packet_iterations"))
         worst = max(worst, compare_k6(label, dw, cfg.t_min, rays, got=got,
                                       exp=exp))
         ms3, got3 = cuda_ms(lambda: packet_trace(dw, cfg.t_min, rays), 10)
@@ -2205,33 +2257,56 @@ def k6_timing_phase(big):
         b3, union = bound(traversal_ops(counts3), nbytes), bound(
             packet_ops(counts), nbytes)
         same = same_triangle(got, got3)
+        t_apart = int((got[0] != got3[0]).sum())
         print(f"  {label}: {rays.shape[1]} rays, "
               f"{int((rays[6] > cfg.t_min).sum())} active; bound {b3[0]:.4f} "
               f"ms ({b3[1]}, K3's pops {counts3}); K6 {ms:.3f} ms/launch "
               f"(twin {plain:.1f} ms; {ms / b3[0]:.1f}x the bound; union-walk "
-              f"pops {counts}, their own bound {union[0]:.4f} ms, {union[1]})"
-              f"; K3 {ms3:.3f} ms/launch (twin {plain3:.1f} ms; "
-              f"{ms3 / b3[0]:.1f}x the bound); K6/K3 {ms / ms3:.2f}; same "
-              f"triangle {same:.6f}")
+              f"pops {counts}, their own bound {union[0]:.4f} ms, {union[1]}"
+              f"; longest packet {longest} iterations, "
+              f"{ms * 1e6 / longest:.1f} ns an iteration); K3 {ms3:.3f} "
+              f"ms/launch (twin {plain3:.1f} ms; {ms3 / b3[0]:.1f}x the "
+              f"bound); K6/K3 {ms / ms3:.2f}; same triangle {same:.6f}, t "
+              f"apart from K3's on {t_apart} rays")
         check(same >= K3_SAME_TRI, f"K6 and K3 {label}: same triangle on "
                                    f"{same}")
         times[label] = {"K6": (ms, plain) + b3, "K3": (ms3, plain3) + b3,
-                        "K6 union walk": union}
+                        "K6 union walk": union, "K6 longest packet": longest,
+                        "K6 t apart from K3": t_apart}
     # the same rays sorted, as the streamed route traces them: K6 and K3,
-    # no twin (its walk of the sorted wave's ~37 live packets takes ~20 s;
-    # phase 21 holds K6 to it on a sorted bounce wave)
+    # and K6's twin (~20 s: the sorted wave's ~37 live packets walk long,
+    # one after another in the twin's passes)
     rays = third
     ms, got = cuda_ms(lambda: packet_trace2(dw, cfg.t_min, rays), 10)
+    counts = {}
+    plain, exp = cuda_ms(lambda: packet_trace2_plain(
+        dw, cfg.t_min, rays, counts=counts), 1, warm=False)
+    longest = max(counts.pop("per_packet_iterations"))
+    worst = max(worst, compare_k6("third bounce sorted", dw, cfg.t_min, rays,
+                                  got=got, exp=exp))
     ms3, got3 = cuda_ms(lambda: packet_trace(dw, cfg.t_min, rays), 10)
     same = same_triangle(got, got3)
+    t_apart = int((got[0] != got3[0]).sum())
     b3 = times["third bounce unsorted"]["K3"][2:]
+    union = bound(packet_ops(counts),
+                  nbytes_tree + rays.shape[1] * (7 + 19) * 4)
     print(f"  third bounce sorted: the same {rays.shape[1]} rays sorted; "
-          f"K6 {ms:.3f} ms/launch ({ms / b3[0]:.1f}x the bound), K3 "
+          f"K6 {ms:.3f} ms/launch (twin {plain:.1f} ms; {ms / b3[0]:.1f}x "
+          f"the bound; union-walk pops {counts}, their own bound "
+          f"{union[0]:.4f} ms, {union[1]}; longest packet {longest} "
+          f"iterations, {ms * 1e6 / longest:.1f} ns an iteration), K3 "
           f"{ms3:.3f} ms/launch; K6/K3 {ms / ms3:.2f}; sorted/unsorted K6 "
           f"{ms / times['third bounce unsorted']['K6'][0]:.2f}; same "
-          f"triangle {same:.6f}")
+          f"triangle {same:.6f}, t apart from K3's on {t_apart} rays")
     check(same >= K3_SAME_TRI, f"K6 and K3 sorted: same triangle on {same}")
-    times["third bounce"] = {"K6": (ms,) + b3, "K3": (ms3,) + b3}
+    times["third bounce"] = {"K6": (ms, plain) + b3, "K3": (ms3, None) + b3,
+                             "K6 union walk": union,
+                             "K6 longest packet": longest,
+                             "K6 t apart from K3": t_apart}
+    for row in times.values():
+        row["K6 ns per iteration"] = row["K6"][0] * 1e6 / row[
+            "K6 longest packet"]
+    times["ptxas"], times["smem"] = ptxas, smem
     waves = {"first bounce": first, "third bounce unsorted": third_unsorted,
              "third bounce": third, "adaptive": adaptive}
     return times, worst, waves
@@ -3342,7 +3417,7 @@ def stripped_phase(big, twin_waves, waves, k6_times):
     plain, worst = {}, 0.0
     # the twins walk the 64x64 waves faster on the host CPU (equal bits),
     # but for pushall_center's whole-tree test of every row (on the card)
-    dw_cpu = dw._replace(nodes=dw.nodes.cpu(), tris=dw.tris.cpu())
+    dw_cpu = host_copy(dw)
 
     def abs_err(got, exp):
         return float(torch.where(got == exp, 0.0, (got - exp).abs()).max())
@@ -3389,7 +3464,10 @@ def stripped_phase(big, twin_waves, waves, k6_times):
         k3_ms, k3 = cuda_ms(lambda: packet_trace(dw, t_min, rays), P1_REPS)
         b3 = k6_times[label if label != "third bounce"
                       else "third bounce unsorted"]["K3"][2:4]
-        row = {"K6_ms": k6_ms, "K3_ms": k3_ms, "bound_ms": b3[0]}
+        k6_longest = k6_times[label]["K6 longest packet"]
+        row = {"K6_ms": k6_ms, "K3_ms": k3_ms, "bound_ms": b3[0],
+               "K6_longest_packet": k6_longest,
+               "K6_ns_per_iteration": k6_ms * 1e6 / k6_longest}
         for variant in VARIANTS:
             slow = variant in P1_SLOW
             ms, (out, cnt) = cuda_ms(lambda: stripped_trace(
@@ -3423,8 +3501,13 @@ def stripped_phase(big, twin_waves, waves, k6_times):
             times[label] = (ms, plain_first if label == "first bounce"
                             else None) + tuple(b3)
         s = row["stripped"]["ms"]
+        print(f"  P1 {label}: ns an iteration of the longest packet: K6 "
+              f"{row['K6_ns_per_iteration']:.1f} ({k6_longest} iterations), "
+              f"stripped {row['stripped']['ns_per_iteration']:.1f} "
+              f"({row['stripped']['pops_max']} pops)")
         row["split"] = {
-            "K6 - stripped (the leaf queue)": k6_ms - s,
+            "K6 - stripped (the leaf queue, rows in shared memory)":
+                k6_ms - s,
             "stripped - no_sortnet (thread 0's network)":
                 s - row["no_sortnet"]["ms"],
             "stripped - packed_center (the key's block minimum)":
@@ -3839,20 +3922,30 @@ def main() -> int:
                      k6_runs["cli_adaptive"]["K6"],
                      max(k6_worst, k6_time_worst, env_worst["K6"]),
                      k6_times["first bounce"]["K6"],
-                     third_sorted={
-                         "per": f"launch on the {BVH_W}x{BVH_H} sorted "
-                                "third-bounce wave (no twin run: its twin "
-                                "ran on the same rays unsorted)",
-                         "launches": k6_runs["renderer_k6"]["K6"],
-                         "ms": k6_times["third bounce"]["K6"][0],
-                         "bound_ms": k6_times["third bounce"]["K6"][1],
-                         "bound_by": k6_times["third bounce"]["K6"][2]},
+                     third_sorted=(f"launch on the {BVH_W}x{BVH_H} sorted "
+                                   "third-bounce wave",
+                                   k6_runs["renderer_k6"]["K6"],
+                                   k6_time_worst,
+                                   k6_times["third bounce"]["K6"]),
                      third_unsorted=(f"launch on the {BVH_W}x{BVH_H} "
                                      "unsorted third-bounce wave",
                                      k6_runs["renderer_k6_unsorted"]["K6"],
                                      k6_time_worst,
-                                     k6_times["third bounce unsorted"]["K6"])),
-             union_walk_bound_ms=k6_times["first bounce"]["K6 union walk"][0]),
+                                     k6_times["third bounce unsorted"]["K6"]),
+                     adaptive=(f"launch on a {ADAPT_FRAC} adaptive wave "
+                               f"({BVH_W}x{BVH_H}, {ADAPT_TILE}^2 tiles)",
+                               k6_runs["cli_adaptive"]["K6"], k6_time_worst,
+                               k6_times["adaptive"]["K6"])),
+             union_walk_bound_ms=k6_times["first bounce"]["K6 union walk"][0],
+             ptxas=k6_times["ptxas"], dynamic_smem_bytes=k6_times["smem"],
+             **{key: {label.replace(" ", "_"): k6_times[label][name]
+                      for label in ("first bounce", "third bounce unsorted",
+                                    "third bounce", "adaptive")}
+                for key, name in (
+                    ("union_walk_bound_ms_by_wave", "K6 union walk"),
+                    ("longest_packet_iterations", "K6 longest packet"),
+                    ("ns_per_iteration", "K6 ns per iteration"),
+                    ("t_apart_from_K3", "K6 t apart from K3"))}),
         kernel_entry("tlas_trace (K7)", "sfvp_tpu_torch/csrc/tlas_trace.cu",
                      "sfvp_tpu/kernels/bvh_tlas.py:403",
                      f"{field_wave} wave (instanced field)",

@@ -64,17 +64,31 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
   return Ray{ox, oy, oz, dx, dy, dz, safe_inv(dx), safe_inv(dy), safe_inv(dz)};
 }
 
+// How the tests below read a row: through the read-only cache from
+// device memory (GlobalRow, every kernel's walk), or a copy of the row in
+// shared memory (SharedRow, K6's leaf ring and node buffer). The floats
+// read are the same either way, so are the tests' results.
+struct GlobalRow {
+  __device__ __forceinline__ static float at(const float* p) {
+    return __ldg(p);
+  }
+};
+struct SharedRow {
+  __device__ __forceinline__ static float at(const float* p) { return *p; }
+};
+
 // Moller-Trumbore of a ray against the triangle of the 16-lane slot s: its
 // t, u, v, and whether the ray's line crosses it (det away from zero, the
 // barycentrics inside). The caller applies its own t window.
+template <class L = GlobalRow>
 __device__ __forceinline__ bool slot_test(const float* s, const Ray& r,
                                           float det_eps, float& t, float& u,
                                           float& v) {
-  const float t0x = __ldg(s + 0), t0y = __ldg(s + 1), t0z = __ldg(s + 2);
-  const float e1x = __ldg(s + 3) - t0x, e1y = __ldg(s + 4) - t0y,
-              e1z = __ldg(s + 5) - t0z;
-  const float e2x = __ldg(s + 6) - t0x, e2y = __ldg(s + 7) - t0y,
-              e2z = __ldg(s + 8) - t0z;
+  const float t0x = L::at(s + 0), t0y = L::at(s + 1), t0z = L::at(s + 2);
+  const float e1x = L::at(s + 3) - t0x, e1y = L::at(s + 4) - t0y,
+              e1z = L::at(s + 5) - t0z;
+  const float e2x = L::at(s + 6) - t0x, e2y = L::at(s + 7) - t0y,
+              e2z = L::at(s + 8) - t0z;
   const float pvx = r.dy * e2z - r.dz * e2y;
   const float pvy = r.dz * e2x - r.dx * e2z;
   const float pvz = r.dx * e2y - r.dy * e2x;
@@ -93,24 +107,26 @@ __device__ __forceinline__ bool slot_test(const float* s, const Ray& r,
 
 // The stack code of child c of a node row: ref+1 (node), -(ref+1) (leaf
 // row), -(kInstBase+ref+1) (instance), 0 (empty slot).
+template <class L = GlobalRow>
 __device__ __forceinline__ int child_code(const float* row, int c) {
-  const int ref = (int)__ldg(row + 48 + c);
-  const float tag = __ldg(row + 56 + c);
+  const int ref = (int)L::at(row + 48 + c);
+  const float tag = L::at(row + 56 + c);
   return tag > 2.5f ? -(kInstBase + ref + 1)
                     : (tag > 1.5f ? -(ref + 1) : (tag > 0.5f ? ref + 1 : 0));
 }
 
 // The slab test of a node row's child c in [t_min, limit]: whether the ray
 // enters its box, and the entry distance.
+template <class L = GlobalRow>
 __device__ __forceinline__ bool enters(const float* row, int c, const Ray& r,
                                        float t_min, float limit,
                                        float& tnear) {
-  const float tx0 = (__ldg(row + c) - r.ox) * r.ivx;
-  const float tx1 = (__ldg(row + 24 + c) - r.ox) * r.ivx;
-  const float ty0 = (__ldg(row + 8 + c) - r.oy) * r.ivy;
-  const float ty1 = (__ldg(row + 32 + c) - r.oy) * r.ivy;
-  const float tz0 = (__ldg(row + 16 + c) - r.oz) * r.ivz;
-  const float tz1 = (__ldg(row + 40 + c) - r.oz) * r.ivz;
+  const float tx0 = (L::at(row + c) - r.ox) * r.ivx;
+  const float tx1 = (L::at(row + 24 + c) - r.ox) * r.ivx;
+  const float ty0 = (L::at(row + 8 + c) - r.oy) * r.ivy;
+  const float ty1 = (L::at(row + 32 + c) - r.oy) * r.ivy;
+  const float tz0 = (L::at(row + 16 + c) - r.oz) * r.ivz;
+  const float tz1 = (L::at(row + 40 + c) - r.oz) * r.ivz;
   tnear = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
                 fmaxf(fminf(tz0, tz1), t_min));
   const float tfar = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),

@@ -56,6 +56,12 @@ MAX_WIDE_STACK = 256
 # kPacketStack) and leaf queue (kMaxLeafQ), in shared memory
 MAX_PACKET_STACK = 512
 MAX_LEAF_Q = 256
+# K6's shared memory (csrc/packet_trace2.cu): the walk's state (PacketWalk,
+# static, at most PACKET_WALK_BYTES), and in dynamic shared memory a ring
+# of leaf_q leaf rows, the node buffer (a node row's first 64 lanes) and
+# an mbarrier per ring slot and for the node buffer (packet_smem_bytes)
+PACKET_WALK_BYTES = 4096
+ROW_BYTES, NODE_ROW_BYTES, MBARRIER_BYTES = 512, 256, 8
 # child refs are stored as float32 in the node rows: exact below 2**24
 MAX_WIDE_ROWS = 1 << 24
 # K3's and K4's ray count is a C int (their plane offsets are size_t)
@@ -122,6 +128,21 @@ def table_plan(num_tris: int, rows: int):
     if whole <= MAX_SMEM_BYTES:
         return 0, whole
     return TILE_TRIS, 4 * TILE_ROWS * TILE_TRIS
+
+
+def packet_smem_plan(leaf_q: int) -> int:
+    """The dynamic shared memory of K6 with a leaf queue of ``leaf_q``
+    rows: its ring of leaf rows, the node buffer and their mbarriers.
+    Raises when they and the walk's state do not fit in the
+    MAX_SMEM_BYTES a block may opt in to."""
+    dyn = (leaf_q * ROW_BYTES + NODE_ROW_BYTES
+           + (leaf_q + 1) * MBARRIER_BYTES)
+    if PACKET_WALK_BYTES + dyn > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"K6 with leaf_q {leaf_q} needs {PACKET_WALK_BYTES + dyn} bytes "
+            f"of shared memory (a ring of {leaf_q} leaf rows of {ROW_BYTES} "
+            f"bytes), more than the {MAX_SMEM_BYTES} a block may hold")
+    return dyn
 
 
 def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
@@ -295,10 +316,11 @@ def library() -> ctypes.CDLL:
                      (lib.sfvp_tlas_occlusion, TwoLevelParams)):
         fn.argtypes = [ctypes.POINTER(tree), ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    # K6 takes the leaf queue's capacity after the ray count
+    # K6 takes the leaf queue's capacity and its dynamic shared memory
+    # after the ray count
     lib.sfvp_packet_trace2.argtypes = [
         ctypes.POINTER(WideParams), ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     # P3 and P4: params, directions, n, mode, float16 map, out, stream
     lib.sfvp_env_fetch.argtypes = [
         ctypes.POINTER(Params), ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -359,7 +381,8 @@ def launch(fn_name: str, scene, params: Params, has_mirrors: bool,
 
 def _launch_wave(fn_name: str, wp, rays, out, *extra):
     """Launch a per-ray BVH kernel (K3, K4 with WideParams; K7, K8 with
-    TwoLevelParams), or K6 with ``extra`` = (leaf_q,), over the (7, N) ray
+    TwoLevelParams), or K6 with ``extra`` = (leaf_q, its dynamic shared
+    memory), or P1 with ``extra`` = (variant, counts), over the (7, N) ray
     planes into ``out`` on the current stream of the rays' device. N goes
     to the kernel as a C int, so a wave holds fewer than 2**31 rays."""
     n = rays.shape[1]
@@ -395,10 +418,12 @@ def launch_bvh_trace(wp: "WideParams", rays):
 def launch_packet_trace2(wp: "WideParams", rays, leaf_q: int):
     """K6: (7, N) ray planes in, (19, N) payload planes out ((22, N) on a
     textured tree), one block per packet of 1024 rays with a leaf queue of
-    ``leaf_q`` entries."""
+    ``leaf_q`` entries and their ring in shared memory
+    (``packet_smem_plan``)."""
+    smem = packet_smem_plan(leaf_q)
     return _launch_wave("sfvp_packet_trace2", wp, rays, torch.empty(
         (_payload_planes(wp, rays), rays.shape[1]), dtype=torch.float32,
-        device=rays.device), leaf_q)
+        device=rays.device), leaf_q, smem)
 
 
 def launch_stripped_trace(wp: "WideParams", rays, variant: int):
@@ -441,7 +466,11 @@ def _check_tables(what: str, max_stack: int, tables,
     """What the BVH kernels take: contiguous float32 (rows, 128) tables on
     a CUDA device, fewer than 2**24 rows each (refs are float32),
     max_stack within the kernels' stack; for K6 (``leaf_q``), max_stack +
-    leaf_q within its packet stack."""
+    leaf_q within its packet stack, its shared memory within a block's
+    (``packet_smem_plan``), and tables 16-byte aligned (its bulk copies
+    take 16-byte aligned rows)."""
+    if leaf_q:
+        packet_smem_plan(leaf_q)
     cap = MAX_PACKET_STACK if leaf_q else MAX_WIDE_STACK
     if max_stack + leaf_q > cap:
         spill = f" + leaf_q {leaf_q}" if leaf_q else ""
@@ -460,6 +489,10 @@ def _check_tables(what: str, max_stack: int, tables,
             raise ValueError(f"{what} {name} must be a contiguous float32 "
                              f"(rows, 128) tensor, got {t.dtype} "
                              f"{tuple(t.shape)}")
+        if leaf_q and t.data_ptr() % 16:
+            raise ValueError(f"{what} {name} must start on a 16-byte "
+                             f"boundary for K6's bulk copies, got "
+                             f"{t.data_ptr():#x}")
 
 
 def wide_params(dw, t_min: float, leaf_q: int = 0) -> WideParams:

@@ -32,7 +32,9 @@ The TPU kernel's interleave of packets, payload carry and SMEM code table
 (``n_packets``, ``payload_in_carry``, ``smem_codes``) change no packet's
 result, since each packet's work is gated by its own counters
 (bvh_packet2.py:168-173), and have no counterpart here. Its HBM-to-VMEM
-leaf ring is the streaming itself: here every tree lives in device memory.
+leaf ring is the kernel's ring of leaf rows in shared memory, each row
+copied there when it is enqueued (csrc/packet_trace2.cu); the twin reads
+the rows where they lie.
 """
 
 from __future__ import annotations
@@ -119,7 +121,10 @@ def packet_trace2_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
     ``counts``, when given, gains the packets' internal-node pops
     ("node_pops": 1024 x 8 box tests and the network each), leaf pops
     ("leaf_pops": 1024 x 8 triangle tests), pops of spilled leaves
-    ("spill_pops") and iterations ("iterations").
+    ("spill_pops") and iterations ("iterations"), and the list of each
+    packet's iterations ("per_packet_iterations", in wave order, the
+    packets of each call appended): a launch of the kernel takes about
+    as many iterations as the longest of them.
     """
     check_leaf_q(leaf_q)
     t_min = f32(t_min)
@@ -151,10 +156,13 @@ def packet_trace2_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
     bslot = torch.zeros((n_pk, PACKET), **i64)
     tally = dict.fromkeys(("node_pops", "leaf_pops", "spill_pops",
                            "iterations"), 0)
+    per_packet = torch.zeros(n_pk, **i64)
     while True:
-        a = torch.nonzero(sp + lt - lh > 0).squeeze(1)
+        live = sp + lt - lh > 0
+        a = torch.nonzero(live).squeeze(1)
         if a.numel() == 0:
             break
+        per_packet += live
         # node phase: pop one code of every packet with a non-empty stack
         ni = a[sp[a] > 0]
         sp[ni] -= 1
@@ -209,6 +217,8 @@ def packet_trace2_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
     if counts is not None:
         for k, v in tally.items():
             counts[k] = counts.get(k, 0) + v
+        counts["per_packet_iterations"] = (
+            counts.get("per_packet_iterations", []) + per_packet.tolist())
 
     def flat(x):
         return x.reshape(-1)[:n]
@@ -220,8 +230,9 @@ def packet_trace2_plain(dw: DeviceWide, t_min: float, rays: torch.Tensor,
 def packet_trace2(dw: DeviceWide, t_min: float, rays: torch.Tensor,
                   leaf_q: int = LEAF_Q):
     """K6 on the rays' device: the CUDA kernel for a CUDA tensor (or an
-    error), the plain twin for a CPU tensor. ``packet_trace2.launches``
-    counts kernel launches."""
+    error, also for a leaf queue whose ring does not fit in a block's
+    shared memory, build.packet_smem_plan), the plain twin for a CPU
+    tensor. ``packet_trace2.launches`` counts kernel launches."""
     if rays.device.type == "cpu":
         return packet_trace2_plain(dw, t_min, rays, leaf_q)
     _check_rays(rays)

@@ -230,6 +230,70 @@ def test_cpu_wrapper_runs_twin_and_counts_no_launch():
     assert packet_trace2.launches == before
 
 
+def test_twin_counts_each_packets_iterations():
+    """``per_packet_iterations``: one entry a packet, summing to the
+    twin's iterations, each the iterations of that packet traced alone (a
+    2-entry queue, so spills count too). K6 pops a node and a leaf an
+    iteration and P1's stripped walk one row, so the two counts agree only
+    where no ray enters a leaf box: rays from the sphere's center ending at
+    t_max 0.2, inside every leaf box's distance. There both walks pop
+    every internal node, and K6's longest packet is stripped's."""
+    from sfvp_tpu_torch.kernels.stripped_trace import stripped_trace_plain
+
+    s = scene("sphere")
+    o, d, _ = _wave(s, 2500, seed=12)
+    rays = ray_planes(_cols(o), _cols(d), 1e4)
+    counts = {}
+    packet_trace2_plain(s["dw"], T_MIN, rays, 2, counts)
+    per = counts["per_packet_iterations"]
+    assert len(per) == 3 and counts["spill_pops"] > 0
+    assert sum(per) == counts["iterations"]
+    for k, n in enumerate(per):
+        alone = {}
+        packet_trace2_plain(s["dw"], T_MIN, rays[:, 1024 * k:1024 * (k + 1)],
+                            2, alone)
+        assert alone["per_packet_iterations"] == [n] == [alone["iterations"]]
+    # a second call appends its packets
+    packet_trace2_plain(s["dw"], T_MIN, rays[:, :1024], 2, counts)
+    assert counts["per_packet_iterations"] == per + per[:1]
+
+    g = np.random.default_rng(5)
+    d = g.normal(size=(4096, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = ray_planes(_cols(np.zeros((4096, 3), np.float32)),
+                      _cols(d.astype(np.float32)), 0.2)
+    k6, p1 = {}, {}
+    packet_trace2_plain(s["dw"], T_MIN, rays, counts=k6)
+    _, pops = stripped_trace_plain(s["dw"], T_MIN, rays, counts=p1)
+    assert k6["leaf_pops"] == p1["leaf_pops"] == 0
+    assert k6["node_pops"] == p1["node_pops"] == 4 * s["dw"].nodes.shape[0]
+    assert k6["per_packet_iterations"] == pops.tolist()
+    assert max(k6["per_packet_iterations"]) == int(pops.max()) > 1
+
+
+def test_shared_memory_plan_fits_every_leaf_q(monkeypatch):
+    """K6's ring of leaf_q rows, its node buffer, their mbarriers and the
+    walk's state fit in the 227 KB a block may opt in to for every leaf_q
+    the wrapper takes (each power of two up to MAX_LEAF_Q; the largest past
+    the 48 KB a launch gets without opting in); a queue whose ring does not
+    fit is refused by the wrapper before any launch, naming leaf_q."""
+    q, sizes = 1, {}
+    while q <= build.MAX_LEAF_Q:
+        dyn = build.packet_smem_plan(q)
+        assert dyn == (q * build.ROW_BYTES + build.NODE_ROW_BYTES
+                       + (q + 1) * build.MBARRIER_BYTES)
+        sizes[q] = build.PACKET_WALK_BYTES + dyn
+        q *= 2
+    assert max(sizes.values()) <= build.MAX_SMEM_BYTES == 232_448
+    assert sizes[build.MAX_LEAF_Q] > 48 * 1024
+    with pytest.raises(ValueError, match="leaf_q 1024 needs"):
+        build.packet_smem_plan(1024)
+    monkeypatch.setattr(build, "MAX_LEAF_Q", 4 * build.MAX_LEAF_Q)
+    rays = torch.empty((7, 16), device="meta")
+    with pytest.raises(ValueError, match="leaf_q 512 needs .* shared memory"):
+        packet_trace2(_meta_wide(), T_MIN, rays, leaf_q=512)
+
+
 def _meta_wide(rows=4, max_stack=26):
     return DeviceWide(nodes=torch.empty((rows, 128), device="meta"),
                       tris=torch.empty((rows, 128), device="meta"),
@@ -403,9 +467,13 @@ def _cuda_scene(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("leaf_q", [64, 2])
+@pytest.mark.parametrize("leaf_q", [1, 2, 64, 256])
 @pytest.mark.parametrize("name", ["soup", "sphere"])
 def test_cuda_kernel_matches_twin(name, leaf_q):
+    """Bitwise on every plane, with the leaf ring at its extremes: one
+    slot refilled every iteration (1), spilled leaves re-enqueued and
+    fetched late (2), the default (64), and the largest ring, past the 48 KB
+    of static shared memory (256)."""
     s = _cuda_scene(name)
     o, d, act = _wave(s, 5000, seed=16, active_frac=0.8)
     dw = device_wide(s["tw"], "cuda")
