@@ -296,6 +296,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -360,6 +361,10 @@ FIELD_TRIS, FIELD_STEPS, LIT_STEPS = 220_000, 4, 4
 FIELD_CLI = ["--sampling", "cosine"]
 LIT_FLAGS = dict(NEE_FLAGS, sky_emission=(0.05, 0.05, 0.05))
 TLAS_CROSS_SIZE, TLAS_CROSS_SPP = 256, 8
+# phase 17's stress field: STRESS_INST small instances of the field's two
+# ball meshes with overlapping boxes, the ground and the lamp
+# (stress_instances), from STRESS_SEED
+STRESS_INST, STRESS_SEED = 200, 5
 # K9 on the instances against K5 on the flattened scene: the two differ by
 # object-space rounding (tests/test_tlas.py:82), which moves a few paths:
 # image means within K9_K5_MEAN (relative), fewer than K9_K5_OFF_FRAC of
@@ -1615,35 +1620,73 @@ def field_setup():
     FIELD_TRIS`` with the CLI's view and sky, cosine, and the lit field
     (the same instances and the lamp, LIT_FLAGS): each with its flattened
     buffers (materials, light table) and its two-level BVH on the card."""
-    from sfvp_tpu_torch import RenderConfig, upload
-    from sfvp_tpu_torch.accel.instances import Instance, flatten_instances
-    from sfvp_tpu_torch.accel.tlas import build_two_level
+    from sfvp_tpu_torch import RenderConfig
+    from sfvp_tpu_torch.accel.instances import Instance
     from sfvp_tpu_torch.cli import procedural_scene
-    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
-    from sfvp_tpu_torch.kernels.bvh_tlas import device_two_level
 
     insts, cfg = procedural_scene("instanced", FIELD_TRIS, RenderConfig(
         width=BVH_W, height=BVH_H, spp_per_step=BVH_SPP, max_depth=BVH_DEPTH,
         sampling="cosine"))
-    lamp = lamp_scene()
-    out = []
-    for name, scene, c in (
-            ("field", insts, cfg),
-            ("lit field", insts + [Instance(scene=lamp)],
-             dataclasses.replace(cfg, **LIT_FLAGS))):
-        t0 = time.perf_counter()
-        tl = build_two_level(scene)
-        secs = time.perf_counter() - t0
-        flat = upload(flatten_instances(scene), device=DEVICE)
-        lights = build_light_table_from_buffers(flat)
-        print(f"  {name}: {len(scene)} instances, {flat.num_tris} triangles "
-              f"flattened ({lights.num if lights else 0} emissive), "
-              f"two-level BVH {tl.nodes.shape[0]} nodes + {tl.tris.shape[0]} "
-              f"leaf + {tl.inst.shape[0]} instance rows, max_stack "
-              f"{tl.max_stack}, built in {secs:.3f} s")
-        out.append(dict(insts=scene, cfg=c, tl=tl, flat=flat, lights=lights,
-                        dt=device_two_level(tl, DEVICE)))
-    return out
+    return [two_level_setup("field", insts, cfg),
+            two_level_setup("lit field", insts + [Instance(scene=lamp_scene())],
+                            dataclasses.replace(cfg, **LIT_FLAGS))]
+
+
+def two_level_setup(name, insts, cfg):
+    """An instanced scene on the card: its flattened buffers, light table
+    and two-level BVH."""
+    from sfvp_tpu_torch import upload
+    from sfvp_tpu_torch.accel.instances import flatten_instances
+    from sfvp_tpu_torch.accel.tlas import build_two_level
+    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
+    from sfvp_tpu_torch.kernels.bvh_tlas import device_two_level
+
+    t0 = time.perf_counter()
+    tl = build_two_level(insts)
+    secs = time.perf_counter() - t0
+    flat = upload(flatten_instances(insts), device=DEVICE)
+    lights = build_light_table_from_buffers(flat)
+    print(f"  {name}: {len(insts)} instances, {flat.num_tris} triangles "
+          f"flattened ({lights.num if lights else 0} emissive), "
+          f"two-level BVH {tl.nodes.shape[0]} nodes + {tl.tris.shape[0]} "
+          f"leaf + {tl.inst.shape[0]} instance rows, max_stack "
+          f"{tl.max_stack}, built in {secs:.3f} s")
+    return dict(insts=insts, cfg=cfg, tl=tl, flat=flat, lights=lights,
+                dt=device_two_level(tl, DEVICE))
+
+
+def stress_instances(insts, lamp, n, seed):
+    """The stress field's instances: the ground of the field ``insts``,
+    ``n`` small instances of its two ball meshes in turn, randomly turned
+    and scaled 0.15-0.6 and packed into a 3 x 2.3 x 3 box over the
+    ground, so that their boxes overlap, and the lamp. Walks there enter
+    one instance's BLAS after another at every depth of the stack, with
+    world entries above and below where each BLAS root was pushed."""
+    from sfvp_tpu_torch.accel.instances import Instance
+
+    balls = [insts[1].scene, insts[2].scene]
+    g = np.random.default_rng(seed)
+    out = [insts[0]]
+    for i in range(n):
+        a, b = g.uniform(0.0, 2.0 * np.pi), g.uniform(-0.7, 0.7)
+        ry = np.asarray([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                         [-np.sin(a), 0, np.cos(a)]])
+        rx = np.asarray([[1, 0, 0], [0, np.cos(b), -np.sin(b)],
+                         [0, np.sin(b), np.cos(b)]])
+        rot = ry @ rx * g.uniform(0.15, 0.6)
+        tr = g.uniform((-1.5, 0.2, -1.5), (1.5, 2.5, 1.5))
+        out.append(Instance(scene=balls[i % 2], transform=np.hstack(
+            [rot, tr[:, None]]).astype(np.float32)))
+    return out + [Instance(scene=lamp)]
+
+
+def stress_setup(field):
+    """Phase 17's stress field: stress_instances over the field's meshes,
+    under the lit field's estimator."""
+    return two_level_setup(
+        "stress field", stress_instances(field["insts"], lamp_scene(),
+                                         STRESS_INST, STRESS_SEED),
+        dataclasses.replace(field["cfg"], **LIT_FLAGS))
 
 
 def two_level_nbytes(tl):
@@ -1673,23 +1716,43 @@ def random_rays(m, seed, shadow=False):
     return ray_planes(tuple(o), tuple(d), tmax, active)
 
 
+def stress_rays(m, seed):
+    """(7, m) planes of rays from the box [-6, 6] x [0.1, 6] x [-6, 6]
+    toward random points of the stress field's cluster of instances."""
+    from sfvp_tpu_torch.kernels.bvh_packet import ray_planes
+
+    g = np.random.default_rng(seed)
+    o = g.uniform((-6.0, 0.1, -6.0), (6.0, 6.0, 6.0), (m, 3))
+    d = g.uniform((-1.5, 0.2, -1.5), (1.5, 2.5, 1.5), (m, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return ray_planes(*(tuple(torch.tensor(a.T, dtype=torch.float32,
+                                           device=DEVICE)) for a in (o, d)),
+                      1e4)
+
+
 def tlas_twin_phase(field, lit):
     from sfvp_tpu_torch.kernels.megakernel_bvh import (
         bvh_regen_render_plain, tlas_regen_render)
 
     size, n = 2 * BVH_TWIN_SIZE, BVH_TWIN_SIZE
     phase(f"tlas twins: K7 on {size}^2-ray waves of the {FIELD_TRIS // 1000}k "
-          f"instanced field, K8 on the lit field's shadow waves, K9 at {n}x{n}, "
-          f"{EARLY_TWIN_SPP} spp, depth {BVH_DEPTH}: cosine, and cosine + RR + "
-          "NEE + MIS on the lit field")
+          f"instanced field and the stress field, K8 on the lit field's "
+          f"shadow waves, K9 at {n}x{n}, {EARLY_TWIN_SPP} spp, depth "
+          f"{BVH_DEPTH}: cosine, and cosine + RR + NEE + MIS on the lit and "
+          "the stress field")
+    stress = stress_setup(field)
     wave = dict(width=size, height=size, spp_per_step=1)
-    camera, bounce = capture_waves(dataclasses.replace(field["cfg"], **wave),
-                                   field, (0, 1))
     t_min = field["cfg"].t_min
-    worst = {"K7": max(compare_trace("K7", label, field["dt"], t_min, rays)
-                       for label, rays in (
-                           ("camera", camera), ("bounce", bounce),
-                           ("random", random_rays(size * size, 0))))}
+    worst = {"K7": 0.0}
+    for name, s, rand in (
+            ("", field, lambda: random_rays(size * size, 0)),
+            ("stress ", stress, lambda: stress_rays(size * size, 2))):
+        camera, bounce = capture_waves(dataclasses.replace(s["cfg"], **wave),
+                                       s, (0, 1))
+        worst["K7"] = max([worst["K7"]] + [
+            compare_trace("K7", name + label, s["dt"], t_min, rays)
+            for label, rays in (("camera", camera), ("bounce", bounce),
+                                ("random", rand()))])
     first, second = capture_waves(dataclasses.replace(lit["cfg"], **wave),
                                   lit, (0, 1), shadow=True)
     worst["K8"] = max(compare_occlusion("K8", label, lit["dt"], t_min, rays)
@@ -1697,7 +1760,8 @@ def tlas_twin_phase(field, lit):
                           ("first bounce", first), ("second bounce", second),
                           ("random", random_rays(size * size, 1, True))))
     worst["K9"] = 0.0
-    for case, s in (("field", field), ("lit field", lit)):
+    for case, s in (("field", field), ("lit field", lit),
+                    ("stress field", stress)):
         args = dict(cfg=dataclasses.replace(s["cfg"], width=n, height=n,
                                             spp_per_step=EARLY_TWIN_SPP),
                     global_shape=(n, n), npix=n * n, has_mirrors=False,
@@ -1830,7 +1894,9 @@ def tlas_timing_phase(field, lit):
 
     phase(f"tlas times and twin check at the main path's shape ({BVH_W}x"
           f"{BVH_H}, {BVH_SPP} spp, depth {BVH_DEPTH}; cosine on the field, "
-          "cosine + RR + NEE + MIS on the lit field), CUDA events")
+          "cosine + RR + NEE + MIS on the lit field), CUDA events; ptxas's "
+          "report on the two-level walks' kernels")
+    two_level_ptxas()
     npix = BVH_W * BVH_H
     times, worst = {}, {"K9": 0.0}
     for case, s in (("field", field), ("lit field", lit)):
@@ -2187,18 +2253,70 @@ def packet_ops(counts):
             + counts["leaf_pops"] * 1024 * 8 * TRI_OPS_ROWS)
 
 
-def k6_ptxas():
-    """ptxas's report on K6 (csrc/packet_trace2.cu) from the build's log:
-    its registers, spills and static shared memory, one line each."""
+def ptxas_entries(*names):
+    """ptxas's report from the build's log on every kernel entry whose
+    mangled name holds one of ``names``: {mangled name: the lines after
+    its "Compiling entry" line (its stack frame and spills, registers,
+    shared memory), up to the next entry}."""
     from sfvp_tpu_torch.kernels import build
 
     log = build.library_path().with_suffix(".log")
     lines = log.read_text().splitlines() if log.exists() else []
-    for k, line in enumerate(lines):
-        if "Compiling entry" in line and "packet_trace2_kernel" in line:
-            return [x.strip() for x in lines[k + 1:k + 4]
-                    if "Compiling entry" not in x]
-    return []
+    out, entry = {}, None
+    for line in lines:
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+            entry = entry if any(n in entry for n in names) else None
+            if entry:
+                out[entry] = []
+        elif line.startswith("#"):
+            entry = None
+        elif entry:
+            out[entry].append(line.strip())
+    return out
+
+
+def k6_ptxas():
+    """ptxas's report on K6 (csrc/packet_trace2.cu) from the build's log:
+    its registers, spills and static shared memory, one line each."""
+    return next(iter(ptxas_entries("packet_trace2_kernel").values()), [])[:3]
+
+
+def ptxas_numbers(lines):
+    """(registers, spill store bytes, spill load bytes, stack frame bytes)
+    of one entry's ptxas lines."""
+    text = " ".join(lines)
+
+    def num(pattern):
+        m = re.search(pattern, text)
+        return int(m.group(1)) if m else -1
+
+    return (num(r"Used (\d+) registers"), num(r"(\d+) bytes spill stores"),
+            num(r"(\d+) bytes spill loads"), num(r"(\d+) bytes stack frame"))
+
+
+def two_level_ptxas():
+    """ptxas's registers, spills and stack frame of K7, K8 and every K9
+    entry (bvh_regen_kernel over TwoLevelWalk, by its template flags), one
+    line each; checks that each was found."""
+    flags = ("mirrors", "nee", "img", "mat", "dof")
+    found = ptxas_entries("tlas_trace_kernel", "tlas_occlusion_kernel",
+                          "TwoLevelWalk")
+    rows = []
+    for entry, lines in found.items():
+        if "TwoLevelWalk" in entry:
+            bits = re.findall(r"Lb([01])", entry)
+            name = "K9 " + " ".join(f"{f}={b}" for f, b in zip(flags, bits))
+        else:
+            name = "K7" if "tlas_trace" in entry else "K8"
+        rows.append((name,) + ptxas_numbers(lines))
+    for name, regs, st, ld, frame in sorted(rows):
+        print(f"  ptxas {name}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B, stack frame {frame} B")
+    check(sum(r[0].startswith("K9") for r in rows) == 10
+          and {"K7", "K8"} <= {r[0] for r in rows},
+          f"ptxas report on K7, K8 and K9's 10 entries not found: {rows}")
+    return rows
 
 
 def k6_timing_phase(big):
@@ -2957,12 +3075,9 @@ def glossy_field_setup():
     """The instanced field of FIELD_TRIS with its first ball mesh GGX
     (roughness 0.3, Ks 0.85) and its second glass (IOR 1.5), and the lamp
     of the lit field, cosine + RR + NEE + MIS (LIT_FLAGS)."""
-    from sfvp_tpu_torch import RenderConfig, upload
-    from sfvp_tpu_torch.accel.instances import Instance, flatten_instances
-    from sfvp_tpu_torch.accel.tlas import build_two_level
+    from sfvp_tpu_torch import RenderConfig
+    from sfvp_tpu_torch.accel.instances import Instance
     from sfvp_tpu_torch.cli import procedural_scene
-    from sfvp_tpu_torch.integrate.lights import build_light_table_from_buffers
-    from sfvp_tpu_torch.kernels.bvh_tlas import device_two_level
 
     insts, cfg = procedural_scene("instanced", FIELD_TRIS, RenderConfig(
         width=BVH_W, height=BVH_H, spp_per_step=BVH_SPP, max_depth=BVH_DEPTH,
@@ -2979,16 +3094,10 @@ def glossy_field_setup():
                                       np.float32))
     insts = ([insts[0]] + [dataclasses.replace(i, scene=meshes[id(i.scene)])
                            for i in insts[1:]] + [Instance(scene=lamp_scene())])
-    t0 = time.perf_counter()
-    tl = build_two_level(insts)
-    flat = upload(flatten_instances(insts), device=DEVICE)
-    lights = build_light_table_from_buffers(flat)
-    print(f"  glossy field: {len(insts)} instances, {flat.num_tris} "
-          f"triangles flattened ({int((flat.mtype == 2).sum())} GGX, "
-          f"{int((flat.mtype == 3).sum())} glass), two-level BVH built in "
-          f"{time.perf_counter() - t0:.3f} s")
-    return dict(insts=insts, cfg=cfg, tl=tl, flat=flat, lights=lights,
-                dt=device_two_level(tl, DEVICE))
+    g = two_level_setup("glossy field", insts, cfg)
+    print(f"  glossy field: {int((g['flat'].mtype == 2).sum())} GGX and "
+          f"{int((g['flat'].mtype == 3).sum())} glass triangles")
+    return g
 
 
 def mat_twin_phase(city, glass, field):

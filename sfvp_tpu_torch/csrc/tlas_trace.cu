@@ -4,20 +4,26 @@
 // Replaces sfvp_tpu/kernels/bvh_tlas.py, make_two_level_trace (kernel body
 // from :107, pallas_call at :403): the wavefront loop's per-bounce trace
 // of instanced scenes. One thread owns one ray of the (N,) wave, walks the
-// TLAS and the instanced BLASes with its own stacks of codes and instance
-// contexts (two_level.cuh) and writes K3's 19 payload planes: t, u, v, the
-// hit triangle's three vertices in WORLD space, albedo, emission and packed
-// material type (zeros and t = +inf on a miss).
+// TLAS and the instanced BLASes on its own stack of codes, each entry's
+// instance context derived from its stack index (two_level.cuh), and
+// writes K3's 19 payload planes: t, u, v, the hit triangle's three
+// vertices in WORLD space, albedo, emission and packed material type
+// (zeros and t = +inf on a miss).
 //
-// What bounds it on an H100: as for K3 (bvh_trace.cu), dependent node and
-// leaf loads from an L2-resident tree (1.1 MB for the 220k-triangle
-// instanced field) and divergence, plus the ray's re-derivation (18
-// multiplies and adds, three reciprocals) each time its context changes.
-// What the simple design does about it: the object-space ray is kept
-// until the popped context changes, and the world transform of the winning
-// triangle runs once after the walk, not on every leaf pop as in the TPU
-// kernel's first form. Left for later work: K3's list (ray reordering,
-// a compact node format, persistent threads).
+// What bounds it on an H100, as measured (NVIDIA H100 80GB HBM3, 700 W;
+// five variants of the walk timed against each other by chip_ab.py,
+// PERF.md): the row loads. A node pop read its row's 64 used lanes and a
+// leaf pop its 8 slots' 72 vertex lanes by scalar loads, and on a warp
+// whose lanes pop different rows each load splits into up to 32
+// requests. The two local-memory stacks, the instance pops' extra loop
+// trips and the re-derived ray cost a few percent; divergence between
+// node and leaf pops did not pay to separate. What the design does about
+// it: 16-byte loads (16 a node row, 3 a leaf slot), one stack, and the
+// BLAS root expanded in its instance pop's trip: 0.83 -> 0.60 ms a launch
+// on the 220k field's 1M-ray first bounce, 1.03 -> 0.73 on its third
+// (29% off; the walk, and so the payload, bit for bit the same). Left
+// for later work: the tests' own arithmetic and divergence, and K3's list
+// (ray reordering, a compact node format, persistent threads).
 #include "two_level.cuh"
 
 namespace sfvp {

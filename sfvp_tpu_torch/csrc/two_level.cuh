@@ -5,18 +5,20 @@
 // (tlas_occlusion.cu) and K9's shadow rays. The walks of wide_bvh.cuh with
 // the two-level additions of sfvp_tpu/kernels/bvh_tlas.py:
 //
-//   - beside the stack of child codes, a stack of instance contexts: every
-//     pushed entry records the instance whose object space it lives in
-//     (-1 = the TLAS, world space); the start state is the TLAS root in
-//     world space;
+//   - every stack entry lives in an instance context, the instance whose
+//     object space it is in (-1 = the TLAS, world space); the start state
+//     is the TLAS root in world space. The any-hit walk keeps a stack of
+//     contexts beside its stack of codes, as the twins do; the closest-hit
+//     walk derives an entry's context from its stack index (see there);
 //   - at each pop the ray in the popped entry's space, from the instance
 //     row's inverse transform (lanes 0-11), o' = iR o + it and d' = iR d,
 //     left to right; the direction is NOT renormalised, so t stays in
 //     world measure and the best t prunes across instances. Consecutive
 //     pops mostly share their context, so the ray is re-derived only when
 //     the context changes (the same floats either way);
-//   - an instance code pushes the instance's BLAS root (lane 24) under the
-//     instance's context, with no box test;
+//   - an instance code stands for the instance's BLAS root (lane 24) under
+//     the instance's context, with no box test: the any-hit walk pushes
+//     the root, the closest-hit walk expands it at once;
 //   - the winning triangle's object-space vertices go to world space once,
 //     after the walk, with the instance's forward transform (lanes 12-23),
 //     x' = R0 x + R1 y + R2 z + t0: the order of both TPU forms
@@ -25,8 +27,9 @@
 //     and K9's shading.
 //
 // Every expression keeps the operation order of the plain twins
-// (kernels/bvh_tlas.py), built with -fmad=false. Each walk has one exit (a
-// flag and a break), as wide_any_hit must.
+// (kernels/bvh_tlas.py), built with -fmad=false, and each walk pops the
+// twins' entries in their order, so kernels and twins agree bit for bit.
+// Each walk has one exit (a flag and a break), as wide_any_hit must.
 #pragma once
 
 #include "wide_bvh.cuh"
@@ -65,8 +68,58 @@ __device__ __forceinline__ Ray local_ray(const TwoLevel& g, int ctx,
       __ldg(tf + 6) * dx + __ldg(tf + 7) * dy + __ldg(tf + 8) * dz);
 }
 
+// n 16-byte loads of lanes p[0 .. 4n) into out[0 .. 4n): p must be
+// 16-byte aligned (kernels/build.py two_level_params checks the tables).
+__device__ __forceinline__ void load_quads(const float* p, float* out,
+                                           int n) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    const float4 x = __ldg(q + j);
+    out[4 * j] = x.x;
+    out[4 * j + 1] = x.y;
+    out[4 * j + 2] = x.z;
+    out[4 * j + 3] = x.w;
+  }
+}
+
+// sorted_children of a node row read by 16 16-byte loads, not 64 scalar
+// ones: children 0-3's 8 quads (the six box planes, refs, tags), then
+// children 4-7's, into a register copy laid out as the row, which the
+// slab tests and the network then read as they read a row in shared
+// memory (the same floats, the same operations in the same order).
+__device__ __forceinline__ void sorted_children_quads(const float* row,
+                                                      const Ray& r,
+                                                      float t_min,
+                                                      float limit,
+                                                      int cc[8]) {
+  float n[64];
+  const float4* q = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const float4 x = __ldg(q + 2 * a + half);
+      n[8 * a + 4 * half] = x.x;
+      n[8 * a + 4 * half + 1] = x.y;
+      n[8 * a + 4 * half + 2] = x.z;
+      n[8 * a + 4 * half + 3] = x.w;
+    }
+  }
+  sorted_children<SharedRow>(n, r, t_min, limit, cc);
+}
+
 // Closest hit in (t_min, tmax) of one world-space ray. A ray with tmax <=
 // t_min (an inactive one) misses without walking the tree.
+//
+// One stack of codes. A TLAS has one level of instances, so the entries
+// pushed while the walk is inside instance id all lie at or above the
+// index ``base`` where the instance was popped, and every entry below it
+// lies in world space: the context of the entry popped at index k is id
+// for k >= base, else world space. A pop below base takes base away (no
+// entry of the instance is left, and world children pushed later may sit
+// at or above the old base). An instance pop expands the instance's BLAS
+// root, an internal node and its next pop anyway, in the same trip.
 static __device__ __noinline__ TwoLevelHit two_level_closest_hit(
     const TwoLevel& g, float ox, float oy, float oz, float dx, float dy,
     float dz, float tmax) {
@@ -78,54 +131,57 @@ static __device__ __noinline__ TwoLevelHit two_level_closest_hit(
   h.slot = -1;
   h.inst = -1;
   if (!(tmax > g.t_min)) return h;
-  int stack[kMaxStack], ctxs[kMaxStack];
-  stack[0] = 1;  // the TLAS root, internal node 0
-  ctxs[0] = -1;  // in world space
+  int stack[kMaxStack];
+  stack[0] = 1;  // the TLAS root, internal node 0, in world space
   int sp = 1;
-  int cur = -1;  // the context of r
+  int base = kMaxStack;  // none: every entry in world space
+  int id = -1;           // the instance of the entries at or above base
+  int cur = -1;          // the context of r
   Ray r = local_ray(g, -1, ox, oy, oz, dx, dy, dz);
   while (sp > 0) {
     --sp;
-    const int code = stack[sp], ctx = ctxs[sp];
-    const int neg = -code - 1;
-    if (code < 0 && neg >= kInstBase) {
+    int code = stack[sp];
+    int ctx = id;
+    if (sp < base) {
+      ctx = -1;
+      base = kMaxStack;
+    }
+    if (code < 0 && -code - 1 >= kInstBase) {
       // instance: its BLAS root, under its own context
-      const int id = neg - kInstBase;
-      stack[sp] = (int)__ldg(g.inst + (size_t)id * kRowLanes + 24) + 1;
-      ctxs[sp] = id;
-      ++sp;
-    } else {
-      if (ctx != cur) {
-        r = local_ray(g, ctx, ox, oy, oz, dx, dy, dz);
-        cur = ctx;
+      id = ctx = -code - 1 - kInstBase;
+      base = sp;
+      code = (int)__ldg(g.inst + (size_t)id * kRowLanes + 24) + 1;
+    }
+    if (ctx != cur) {
+      r = local_ray(g, ctx, ox, oy, oz, dx, dy, dz);
+      cur = ctx;
+    }
+    if (code < 0) {
+      // leaf row: Moller-Trumbore in object space, strict t < best, each
+      // slot's 9 vertex lanes by three 16-byte loads
+      const int row = -code - 1;
+      const float* s = g.tris + (size_t)row * kRowLanes;
+      for (int k = 0; k < 8; ++k) {
+        float vtx[12];
+        load_quads(s + 16 * k, vtx, 3);
+        float t, u, v;
+        if (slot_test<SharedRow>(vtx, r, g.det_eps, t, u, v) &&
+            t > g.t_min && t < tmax && t < h.t) {
+          h.t = t;
+          h.u = u;
+          h.v = v;
+          h.row = row;
+          h.slot = k;
+          h.inst = ctx;
+        }
       }
-      if (code < 0) {
-        // leaf row: Moller-Trumbore in object space, strict t < best
-        const float* s = g.tris + (size_t)neg * kRowLanes;
-        for (int k = 0; k < 8; ++k) {
-          float t, u, v;
-          if (slot_test(s + 16 * k, r, g.det_eps, t, u, v) && t > g.t_min &&
-              t < tmax && t < h.t) {
-            h.t = t;
-            h.u = u;
-            h.v = v;
-            h.row = neg;
-            h.slot = k;
-            h.inst = ctx;
-          }
-        }
-      } else {
-        int cc[8];
-        sorted_children(g.nodes + (size_t)(code - 1) * kRowLanes, r,
-                        g.t_min, fminf(h.t, tmax), cc);
+    } else {
+      int cc[8];
+      sorted_children_quads(g.nodes + (size_t)(code - 1) * kRowLanes, r,
+                            g.t_min, fminf(h.t, tmax), cc);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          if (cc[c] != 0) {
-            stack[sp] = cc[c];
-            ctxs[sp] = ctx;
-            ++sp;
-          }
-        }
+      for (int c = 0; c < 8; ++c) {
+        if (cc[c] != 0) stack[sp++] = cc[c];
       }
     }
   }

@@ -65,8 +65,9 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
 }
 
 // How the tests below read a row: through the read-only cache from
-// device memory (GlobalRow, every kernel's walk), or a copy of the row in
-// shared memory (SharedRow, K6's leaf ring and node buffer). The floats
+// device memory (GlobalRow), or from a copy of the row (SharedRow: K6's
+// leaf ring and node buffer in shared memory, and the two-level closest
+// hit's register copy filled by 16-byte loads, two_level.cuh). The floats
 // read are the same either way, so are the tests' results.
 struct GlobalRow {
   __device__ __forceinline__ static float at(const float* p) {
@@ -163,6 +164,7 @@ __device__ __forceinline__ void sort_desc(float key[8], int cc[8]) {
 // cc[0..7] their codes (0 = none), the nearest last. Each child the ray
 // enters in [t_min, limit] gets its entry distance as key (-inf for no
 // push), and sort_desc orders the keys descending.
+template <class L = GlobalRow>
 __device__ __forceinline__ void sorted_children(const float* row,
                                                 const Ray& r, float t_min,
                                                 float limit, int cc[8]) {
@@ -170,8 +172,8 @@ __device__ __forceinline__ void sorted_children(const float* row,
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     float tnear;
-    const bool hit = enters(row, c, r, t_min, limit, tnear);
-    const int code_c = child_code(row, c);
+    const bool hit = enters<L>(row, c, r, t_min, limit, tnear);
+    const int code_c = child_code<L>(row, c);
     const bool push = code_c != 0 && hit;
     key[c] = push ? tnear : __int_as_float(0xff800000);  // -inf
     cc[c] = push ? code_c : 0;

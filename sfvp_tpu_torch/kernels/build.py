@@ -461,14 +461,15 @@ def check_launch(fn_name: str, err: int) -> None:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
 
 
-def _check_tables(what: str, max_stack: int, tables,
-                  leaf_q: int = 0) -> None:
+def _check_tables(what: str, max_stack: int, tables, leaf_q: int = 0,
+                  aligned: bool = False) -> None:
     """What the BVH kernels take: contiguous float32 (rows, 128) tables on
     a CUDA device, fewer than 2**24 rows each (refs are float32),
     max_stack within the kernels' stack; for K6 (``leaf_q``), max_stack +
     leaf_q within its packet stack, its shared memory within a block's
-    (``packet_smem_plan``), and tables 16-byte aligned (its bulk copies
-    take 16-byte aligned rows)."""
+    (``packet_smem_plan``); tables 16-byte aligned for K6 (its bulk copies
+    take 16-byte aligned rows) and with ``aligned`` (the two-level
+    closest-hit walk reads its rows by 16-byte loads)."""
     if leaf_q:
         packet_smem_plan(leaf_q)
     cap = MAX_PACKET_STACK if leaf_q else MAX_WIDE_STACK
@@ -489,10 +490,10 @@ def _check_tables(what: str, max_stack: int, tables,
             raise ValueError(f"{what} {name} must be a contiguous float32 "
                              f"(rows, 128) tensor, got {t.dtype} "
                              f"{tuple(t.shape)}")
-        if leaf_q and t.data_ptr() % 16:
+        if (leaf_q or aligned) and t.data_ptr() % 16:
+            use = "K6's bulk copies" if leaf_q else "16-byte row loads"
             raise ValueError(f"{what} {name} must start on a 16-byte "
-                             f"boundary for K6's bulk copies, got "
-                             f"{t.data_ptr():#x}")
+                             f"boundary for {use}, got {t.data_ptr():#x}")
 
 
 def wide_params(dw, t_min: float, leaf_q: int = 0) -> WideParams:
@@ -521,14 +522,16 @@ def wide_params(dw, t_min: float, leaf_q: int = 0) -> WideParams:
 def two_level_params(dt, t_min: float) -> TwoLevelParams:
     """TwoLevelParams of a device two-level BVH (kernels/bvh_tlas.py
     DeviceTwoLevel) on a CUDA device, after ``_check_tables`` on its node,
-    leaf and instance tables. The 2**24 row cap also keeps every leaf-row
-    code -(row + 1) above the instance codes -(2**27 + id + 1)."""
+    leaf and instance tables, each 16-byte aligned for the closest-hit
+    walk's 16-byte row loads (csrc/two_level.cuh). The 2**24 row cap also
+    keeps every leaf-row code -(row + 1) above the instance codes
+    -(2**27 + id + 1)."""
     if dt.inst.shape[0] != dt.num_instances:
         raise ValueError(f"two-level BVH has {dt.inst.shape[0]} instance "
                          f"rows for {dt.num_instances} instances")
     _check_tables("two-level BVH", dt.max_stack,
                   (("nodes", dt.nodes), ("tris", dt.tris),
-                   ("inst", dt.inst)))
+                   ("inst", dt.inst)), aligned=True)
     tp = TwoLevelParams(
         nodes=dt.nodes.data_ptr(), tris=dt.tris.data_ptr(),
         inst=dt.inst.data_ptr(), n_nodes=dt.nodes.shape[0],

@@ -21,6 +21,13 @@ force on the flattened scene: t to rtol 2e-4, atol 2e-5 (object-space
 rounding, tests/test_tlas.py:82). K8: equal on every ray. Images: relative RMSE
 < 1e-5 and max abs < 1e-4 (ROADMAP.md §C), traced segments equal.
 
+The kernels' closest-hit walk (csrc/two_level.cuh) keeps one stack and
+derives each entry's instance context from its index; a scalar Python
+walk of that rule, with the twin's box and triangle tests, is held ray by
+ray to the twin's payload and, pop by pop, to the twins' two-stack walk,
+on every test scene and on a stress field of small overlapping instances
+(where a context misread shows).
+
 The ``cuda`` tests hold the CUDA kernels against their twins and skip
 without a card; chip_smoke.py runs the same comparisons on the H100.
 """
@@ -57,9 +64,15 @@ from sfvp_tpu_torch.accel.instances import (  # noqa: E402
 )
 from sfvp_tpu_torch.dispatch import select_instanced_render_step  # noqa: E402
 from sfvp_tpu_torch.kernels import build  # noqa: E402
-from sfvp_tpu_torch.kernels.bvh_packet import ray_planes  # noqa: E402
+from sfvp_tpu_torch.kernels.bvh_packet import (  # noqa: E402
+    INSTANCE_CODE_BASE,
+    _leaf_tests,
+    _node_children,
+    ray_planes,
+)
 from sfvp_tpu_torch.kernels.bvh_tlas import (  # noqa: E402
     DeviceTwoLevel,
+    _local_rays,
     device_two_level,
     make_two_level_occlusion,
     make_two_level_trace,
@@ -67,6 +80,7 @@ from sfvp_tpu_torch.kernels.bvh_tlas import (  # noqa: E402
     two_level_occlusion_plain,
     two_level_trace,
     two_level_trace_plain,
+    world_vertices,
 )
 from sfvp_tpu_torch.kernels.intersect import trace_brute  # noqa: E402
 from sfvp_tpu_torch.kernels.megakernel_bvh import (  # noqa: E402
@@ -76,6 +90,8 @@ from sfvp_tpu_torch.kernels.megakernel_bvh import (  # noqa: E402
 )
 from sfvp_tpu_torch.scene import procedural as t_proc  # noqa: E402
 from sfvp_tpu_torch.scene.objload import Scene as TScene  # noqa: E402
+
+from sfvp_tpu_torch.utils.vec import f32  # noqa: E402
 
 from test_torch_integrator import assert_close  # noqa: E402
 
@@ -123,6 +139,23 @@ def random_instances(inst_cls, n_inst, mesh_a, mesh_b):
     return out
 
 
+def stress_instances(inst_cls, n_inst, mesh_a, mesh_b):
+    """Small instances of two meshes, randomly turned, scaled 0.15-0.6 and
+    packed into [-1.5, 1.5]^3, so that their boxes overlap: walks there
+    enter one instance after another at every depth of the stack."""
+    g = np.random.default_rng(7)
+    out = []
+    for i in range(n_inst):
+        rot = _rot("y", float(g.uniform(0, 360))) @ _rot(
+            "x", float(g.uniform(-40, 40)))
+        scale = float(g.uniform(0.15, 0.6))
+        tr = g.uniform(-1.5, 1.5, 3).astype(np.float32)
+        out.append(inst_cls(scene=mesh_a if i % 2 == 0 else mesh_b,
+                            transform=np.hstack([(rot * scale).astype(
+                                np.float32), tr[:, None]])))
+    return out
+
+
 def lamp(scene_cls):
     """The lamp of tests/test_tlas.py:131-143: two triangles at y = 4,
     emission 9."""
@@ -140,7 +173,8 @@ def both_scenes(name):
     """(JAX instances, port instances) of a test scene: the field of
     ``--scene instanced`` at 300 triangles, 4 instances; tests/test_tlas.py's
     17 random instances of two meshes; the field, or 4 instances of one
-    mesh, with the lamp instance."""
+    mesh, with the lamp instance; the stress field: 60 small overlapping
+    instances of two meshes and the lamp."""
     out = []
     for scene_cls, inst_cls, proc in ((JScene, JInstance, j_proc),
                                       (TScene, Instance, t_proc)):
@@ -149,6 +183,10 @@ def both_scenes(name):
         elif name == "random17":
             insts = random_instances(inst_cls, 17, _mesh(scene_cls, 30, 1),
                                      _mesh(scene_cls, 22, 2))
+        elif name == "stress":
+            insts = stress_instances(inst_cls, 60, _mesh(scene_cls, 30, 1),
+                                     _mesh(scene_cls, 22, 2)) + [
+                inst_cls(scene=lamp(scene_cls))]
         else:
             mesh = _mesh(scene_cls, 30, 1)
             insts = random_instances(inst_cls, 4, mesh, mesh)
@@ -303,6 +341,104 @@ def test_k8_twin_retires_rays_on_their_first_hit():
     assert none.get("node_pops", 0) == 0
 
 
+def _walk_ray(dt, rays, i, one_stack, pops):
+    """One ray's closest-hit walk, scalar, with the twin's box and
+    triangle tests (kernels/bvh_tlas.py, kernels/bvh_packet.py) on that
+    ray alone; returns (t, u, v, row, slot, inst) and appends (code,
+    context) of every node and leaf pop to ``pops``.
+
+    ``one_stack``: the walk of csrc/two_level.cuh two_level_closest_hit.
+    One stack of codes and two registers, ``base`` and ``inst``: the
+    entries at or above ``base`` lie in instance ``inst``'s object space,
+    those below it in world space. A TLAS has one instance level, so when
+    an instance is popped at index k every entry below k is a world entry,
+    and the walk sets base = k; a pop below ``base`` is a world entry and
+    sets base to none, since every entry of the instance is gone by then
+    and world children may be pushed again at or above the old base. The
+    instance pop expands its BLAS root (an internal node) in the same
+    trip, the root being the next pop anyway.
+
+    Otherwise the parent's walk, the two-stack replay: a context stack
+    beside the code stack, and an instance pop that only pushes its BLAS
+    root under its context."""
+    none = 1 << 30
+    stack, ctxs = [1], [-1]
+    base, inst = none, -1
+    t_min = f32(T_MIN)
+    best = torch.tensor([float("inf")])
+    hit = (float("inf"), 0.0, 0.0, -1, -1, -1)
+    idx = torch.tensor([i])
+    while stack:
+        k = len(stack) - 1
+        code = stack.pop()
+        if one_stack:
+            ctx = inst
+            if k < base:
+                ctx, base = -1, none
+        else:
+            ctx = ctxs.pop()
+        if code < 0 and -code - 1 >= INSTANCE_CODE_BASE:
+            iid = -code - 1 - INSTANCE_CODE_BASE
+            root = int(dt.inst[iid, 24]) + 1
+            assert root > 0, "a BLAS root is an internal node"
+            if not one_stack:
+                stack.append(root)
+                ctxs.append(iid)
+                continue
+            inst, base, ctx, code = iid, k, iid, root
+        pops.append((code, ctx))
+        ray = _local_rays(dt, rays, idx, torch.tensor([ctx]), t_min)
+        if code < 0:
+            slot, t, u, v = _leaf_tests(dt.tris, torch.tensor([-code - 1]),
+                                        ray, best)
+            if bool(t < best):
+                hit = (float(t), float(u), float(v), -code - 1, int(slot),
+                       ctx)
+                best = t
+        else:
+            for c in _node_children(dt.nodes, torch.tensor([code - 1]), ray,
+                                    best, t_min)[0].tolist():
+                if c:
+                    stack.append(c)
+                    ctxs.append(ctx)
+    return hit
+
+
+@pytest.mark.parametrize("name", ["field", "field_lit", "random17",
+                                  "random5", "random5_lit", "stress"])
+def test_one_stack_walk_matches_twin_and_two_stack_contexts(name):
+    """The kernels' one-stack walk, traced ray by ray on a few hundred
+    rays: its hits give the twin's payload bit for bit, and at every node
+    and leaf pop it has the code and the context of the parent's
+    two-stack walk (whose instance pops it folds into the BLAS root's)."""
+    dt = scene(name)["dt"]
+    o, d = _rays(2048, seed=31)
+    rays = ray_planes(_cols(o), _cols(d), 1e4)
+    # up to 150 rays that hit and 50 that miss
+    t = two_level_trace_plain(dt, T_MIN, rays)[0]
+    hit = torch.nonzero(torch.isfinite(t))[:150, 0]
+    rays = rays[:, torch.cat([hit, torch.nonzero(torch.isinf(t))[:50, 0]])]
+    want = two_level_trace_plain(dt, T_MIN, rays)
+    hits, n_pops, in_inst = [], 0, 0
+    for i in range(rays.shape[1]):
+        one, two = [], []
+        hits.append(_walk_ray(dt, rays, i, True, one))
+        _walk_ray(dt, rays, i, False, two)
+        assert one == two, f"ray {i}: pops and contexts differ"
+        n_pops += len(one)
+        in_inst += sum(ctx >= 0 for _, ctx in one)
+    t, u, v, row, slot, inst = (torch.tensor(c) for c in zip(*hits))
+    got = torch.zeros_like(want)
+    got[0], got[1], got[2] = t, u, v
+    ok = row >= 0
+    lanes = 16 * slot[ok][:, None] + torch.arange(16)
+    slots = torch.gather(dt.tris[row[ok]], 1, lanes)
+    got[3:12, ok] = world_vertices(dt, slots[:, :9], inst[ok]).T
+    got[12:, ok] = slots[:, 9:].T
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert ok.sum() == hit.numel() >= 30 and 0 < in_inst < n_pops
+
+
 VIEW = dict(origin=(0.0, 2.0, 9.0), target=(0.0, 0.0, 0.0), fov_y_deg=50.0)
 FIELD_VIEW = dict(origin=(6.0, 5.0, 6.0), target=(0.0, 0.6, 0.0),
                   fov_y_deg=50.0)
@@ -443,8 +579,46 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
         build.two_level_params(meta(n_inst=2), T_MIN)
 
 
+class _FakeCudaTable:
+    """What build._check_tables reads of a (rows, 128) float32 table on a
+    CUDA device, starting at ``ptr``: a stand-in for one without a card."""
+
+    def __init__(self, rows, ptr):
+        self.shape, self.ptr = (rows, 128), ptr
+        self.device, self.dtype = torch.device("cuda"), torch.float32
+
+    def dim(self):
+        return 2
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return self.ptr
+
+
+@pytest.mark.parametrize("table", ["nodes", "tris", "inst"])
+def test_two_level_params_refuses_unaligned_tables(table):
+    """The closest-hit walk reads node and leaf rows by 16-byte loads
+    (csrc/two_level.cuh), so two_level_params refuses a table that does
+    not start on a 16-byte boundary, and takes aligned ones."""
+    ptrs = dict(nodes=0x10000, tris=0x20000, inst=0x30000)
+
+    def tree(**shift):
+        return DeviceTwoLevel(**{
+            k: _FakeCudaTable(4, p + shift.get(k, 0)) for k, p in ptrs.items()},
+            max_stack=40, num_instances=4)
+
+    tp = build.two_level_params(tree(), T_MIN)
+    assert (tp.nodes, tp.tris, tp.inst) == tuple(ptrs.values())
+    for off in (4, 8, 12):
+        with pytest.raises(ValueError, match=f"{table} must start on a "
+                                             "16-byte boundary"):
+            build.two_level_params(tree(**{table: off}), T_MIN)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["field_lit", "random17"])
+@pytest.mark.parametrize("name", ["field_lit", "random17", "stress"])
 def test_cuda_k7_k8_match_twins(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this on the card")
@@ -461,11 +635,13 @@ def test_cuda_k7_k8_match_twins(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["field-cosine", "lit-mis"])
+@pytest.mark.parametrize("case", ["field-cosine", "lit-mis", "stress-mis"])
 def test_cuda_k9_matches_twin(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this on the card")
-    name, kw, view = K9_CASES[case]
+    name, kw, view = dict(
+        K9_CASES, **{"stress-mis": ("stress", dict(NEE, use_mis=True),
+                                    VIEW)})[case]
     s = scene(name)
     _, cfg = configs(dict(kw, width=64, height=48, max_depth=8), view)
     gpu_flat = T.upload(flatten_instances(s["t_insts"]), device="cuda")
