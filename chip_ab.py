@@ -15,10 +15,24 @@ readings of 5 steps or launches each:
 
   K1cornell  K1's step on the Cornell Box at 1024x1024, 32 spp, depth 8,
              parity (chip_smoke.py phase 6's shape);
+  K1nee      K1's step on the Cornell Box, the same shape with cosine + RR
+             + NEE + MIS (phase 16's);
+  K1skynee   K1's step on the Cornell Box under the 64 x 32 sky map, cosine
+             + RR + NEE + MIS (phase 28's);
+  K1glass    K1's step on the Cornell Box with a glass short box through
+             the thin lens, parity (phase 31's);
+  K2cornell  K2's step on the Cornell Box, 32 one-sample launches and
+             their adds, parity (phase 6's);
   K5sphere   K5's step on the sphere at 1024x1024, 8 spp, depth 8,
              cosine + RR (phase 10's);
+  K3first    K3's launch on the sphere's 1M-ray first-bounce wave at
+             1024x1024, 1 spp (phase 10's);
   K5city     K5's step on the city, the same shape with NEE + MIS (phase
              16's);
+  K4city     K4's launch on the city's first-bounce shadow wave at
+             1024x1024, 1 spp (phase 16's);
+  K5ggx2048  K5's step on bench.py's GGX city at its city_sorted_2048
+             shape, 2048x2048, 4 spp, cosine + RR + NEE (phase 31's);
   K9field    K9's step on the instanced field at 1024x1024, 8 spp, depth
              8, cosine (phase 20's);
   K9lit      K9's step on the lit field, cosine + RR + NEE + MIS (phase
@@ -46,16 +60,20 @@ sphere), e.g. ``python3 chip_ab.py out/parent . --only K9,K7``.
 
 Each run calls only chip_smoke.py functions that older checkouts have
 too (cornell_buffers, scene_setup, field_setup, glossy_field_setup,
+glossy_city_setup, glass_setup, env_maps, env_buffers, k1_images,
 capture_waves, capture, cuda_ms), so an older checkout compares with a
-newer one. One line per run, ``AB
-<label> K5city=<ms> K9lit=<ms> ...``, then the card's name and power
-limit. It needs one card; compare two versions only within one run of
-this script.
+newer one. One line per run, ``AB <side> K5city=<ms> K9lit=<ms> ...``,
+and a line of digests of each label's last output, ``OUT <side>
+K5city=<sha256 prefix> ...``; at the end, for each label, whether the
+outputs of all runs of both sides were the same bytes, then the card's
+name and power limit. It needs one card; compare two versions only
+within one run of this script.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import subprocess
 import sys
@@ -63,7 +81,10 @@ import sys
 READINGS, REPS = 3, 5
 # each label's scene (the key of ``scenes`` in child)
 SCENE_OF = {
-    "K1cornell": "cornell", "K5sphere": "sphere", "K5city": "city",
+    "K1cornell": "cornell", "K1nee": "cornell", "K1skynee": "sky",
+    "K1glass": "glass", "K2cornell": "cornell", "K5sphere": "sphere",
+    "K3first": "sphere", "K5city": "city", "K4city": "city",
+    "K5ggx2048": "ggx2048",
     "K9field": "fields", "K9lit": "fields", "K9glossy": "glossy",
     "K7first": "fields", "K7third": "fields", "K8first": "fields",
     "K6first": "big", "K6third_unsorted": "big", "K6third": "big",
@@ -101,26 +122,95 @@ def child(root: str, labels) -> None:
                     runs.update(setup(C))
         finally:
             sys.stdout = stdout
-    out = []
+    out, last = [], {}
     for _ in range(READINGS):
         for name in labels:
-            out.append(f"{name}={C.cuda_ms(runs[name], REPS)[0]:.3f}")
-    print(" ".join(out), flush=True)
+            ms, last[name] = C.cuda_ms(runs[name], REPS)
+            out.append(f"{name}={ms:.3f}")
+    print(" ".join(out))
+    print(" ".join(f"{name}={digest(last[name])}" for name in labels),
+          flush=True)
+
+
+def digest(out) -> str:
+    """The first 16 hex digits of the SHA-256 of a run's output: the
+    bytes of its tensors and the repr of anything else, in order."""
+    import torch
+
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, torch.Tensor):
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                feed(y)
+        else:
+            h.update(repr(x).encode())
+
+    feed(out)
+    return h.hexdigest()[:16]
+
+
+def main_cfg(C, **kw):
+    from sfvp_tpu_torch import RenderConfig
+
+    return RenderConfig(width=C.MAIN_W, height=C.MAIN_H,
+                        spp_per_step=C.MAIN_SPP, max_depth=C.MAIN_DEPTH, **kw)
+
+
+def k1_run(C, buffers, cfg):
+    """K1's step on ``buffers`` under ``cfg`` at the main path's shape."""
+    from sfvp_tpu_torch.integrate.wavefront import material_flags
+    from sfvp_tpu_torch.kernels.megakernel_regen import regen_render
+
+    table, imgs = C.k1_images(buffers, cfg)
+    return lambda: regen_render(
+        table, 1, 0, cfg=cfg, global_shape=(C.MAIN_H, C.MAIN_W),
+        npix=C.MAIN_W * C.MAIN_H, **imgs, **material_flags(buffers))
 
 
 def cornell_runs(C):
-    from sfvp_tpu_torch import RenderConfig
-    from sfvp_tpu_torch.kernels.megakernel import scene_table
-    from sfvp_tpu_torch.kernels.megakernel_regen import regen_render
+    """K1 on the Cornell Box, parity and under NEE + MIS; K2's step of
+    one-sample launches and their adds, as chip_smoke.py phase 6 times
+    it."""
+    from sfvp_tpu_torch.kernels.megakernel import scene_table, wave_render
 
     cornell = C.cornell_buffers(C.DEVICE)
+    main = main_cfg(C)
     table = scene_table(cornell)
-    main = RenderConfig(width=C.MAIN_W, height=C.MAIN_H,
-                        spp_per_step=C.MAIN_SPP, max_depth=C.MAIN_DEPTH)
-    return {"K1cornell": lambda: regen_render(
-        table, 1, 0, cfg=main, num_tris=cornell.num_tris,
-        global_shape=(C.MAIN_H, C.MAIN_W), npix=C.MAIN_W * C.MAIN_H,
-        has_mirrors=False)}
+    args = dict(cfg=main, num_tris=cornell.num_tris,
+                global_shape=(C.MAIN_H, C.MAIN_W), npix=C.MAIN_W * C.MAIN_H,
+                has_mirrors=False)
+
+    def k2_step():
+        total = wave_render(table, 1, 0, 0, **args)
+        for c in range(1, C.MAIN_SPP):
+            total = [a + b for a, b in
+                     zip(total, wave_render(table, 1, c, 0, **args))]
+        return total
+
+    return {"K1cornell": k1_run(C, cornell, main),
+            "K1nee": k1_run(C, cornell, main_cfg(C, **C.NEE_FLAGS)),
+            "K2cornell": k2_step}
+
+
+def sky_runs(C):
+    """K1 on the Cornell Box under the sky map with NEE + MIS (phase
+    28's "K1 env nee")."""
+    import tempfile
+
+    maps = C.env_maps(tempfile.mkdtemp())
+    buffers = C.env_buffers(C.cornell_buffers(C.DEVICE), maps["sky"])
+    return {"K1skynee": k1_run(C, buffers, main_cfg(C, **C.NEE_FLAGS))}
+
+
+def glass_runs(C):
+    """K1 on the glass Cornell Box through the thin lens (phase 31's)."""
+    import tempfile
+
+    g = C.glass_setup(tempfile.mkdtemp())
+    return {"K1glass": k1_run(C, g["buffers"], g["cfg"])}
 
 
 def shape(C):
@@ -128,14 +218,39 @@ def shape(C):
                 has_mirrors=False)
 
 
-def k5_runs(C, name, label, **cfg_kw):
+def k5_runs(C, name, label, wave_label, **cfg_kw):
+    """K5's step on the sphere or the city and, on its first-bounce wave
+    at 1 spp, K3 (the sphere's payload wave) or K4 (the city's shadow
+    wave), as chip_smoke.py phases 10 and 16 capture them."""
+    from sfvp_tpu_torch.kernels.bvh_packet import (
+        packet_occlusion, packet_trace)
     from sfvp_tpu_torch.kernels.megakernel_bvh import bvh_regen_render
 
     s = C.scene_setup(name, C.SPHERE_TRIS if name == "sphere"
                       else C.CITY_TRIS, **cfg_kw)
     lights = s["lights"] if cfg_kw else None
+    cfg = s["cfg"]
+    shadow = bool(cfg_kw)
+    wave = C.capture_waves(dataclasses.replace(cfg, spp_per_step=1), s,
+                           (0,), shadow=shadow)[0]
+    trace = packet_occlusion if shadow else packet_trace
     return {label: lambda: bvh_regen_render(
-        s["dw"], 1, 0, cfg=s["cfg"], lights=lights, **shape(C))}
+        s["dw"], 1, 0, cfg=cfg, lights=lights, **shape(C)),
+        wave_label: lambda: trace(s["dw"], cfg.t_min, wave)}
+
+
+def ggx_runs(C):
+    """K5 on bench.py's GGX city at its city_sorted_2048 shape (phase
+    31's)."""
+    from sfvp_tpu_torch.integrate.wavefront import material_flags
+    from sfvp_tpu_torch.kernels.megakernel_bvh import bvh_regen_render
+
+    s = C.glossy_city_setup(C.CITY2048_FRAC, C.CITY2048_W)
+    cfg = s["cfg"]
+    return {"K5ggx2048": lambda: bvh_regen_render(
+        s["dw"], 1, 0, cfg=cfg, global_shape=(cfg.height, cfg.width),
+        npix=cfg.width * cfg.height, has_mirrors=False, lights=s["lights"],
+        **material_flags(s["buffers"]))}
 
 
 def field_runs(C):
@@ -201,8 +316,12 @@ def big_runs(C):
 
 SETUPS = {
     "cornell": cornell_runs,
-    "sphere": lambda C: k5_runs(C, "sphere", "K5sphere"),
-    "city": lambda C: k5_runs(C, "city", "K5city", **C.NEE_FLAGS),
+    "sky": sky_runs,
+    "glass": glass_runs,
+    "sphere": lambda C: k5_runs(C, "sphere", "K5sphere", "K3first"),
+    "city": lambda C: k5_runs(C, "city", "K5city", "K4city",
+                              **C.NEE_FLAGS),
+    "ggx2048": ggx_runs,
     "fields": field_runs,
     "glossy": glossy_runs,
     "big": big_runs,
@@ -247,14 +366,27 @@ def main(argv) -> int:
     labels = ",".join(selected(args.only))
     me = os.path.abspath(__file__)
     order = [("A", args.a), ("B", args.b), ("B", args.b), ("A", args.a)]
+    digests = {}
     for _ in range(args.rounds):
-        for label, root in order:
+        for side, root in order:
             res = subprocess.run([sys.executable, me, "--child", root, labels],
                                  capture_output=True, text=True)
             if res.returncode != 0:
                 sys.stderr.write(res.stdout + res.stderr)
                 raise SystemExit(f"the run on {root} failed")
-            print(f"AB {label} {res.stdout.strip()}", flush=True)
+            times, outs = res.stdout.strip().splitlines()[-2:]
+            print(f"AB {side} {times}")
+            print(f"OUT {side} {outs}", flush=True)
+            for item in outs.split():
+                name, d = item.split("=")
+                digests.setdefault(name, {}).setdefault(side, set()).add(d)
+    for name, sides in digests.items():
+        seen = sides["A"] | sides["B"]
+        verdict = ("the same bytes in every run" if len(seen) == 1 else
+                   "A and B apart" if sides["A"].isdisjoint(sides["B"])
+                   and len(sides["A"]) == len(sides["B"]) == 1 else
+                   "not repeatable")
+        print(f"SAME {name}: {verdict}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,

@@ -23,7 +23,9 @@ Phases, each of which raises (exit code 1, no result line) on failure:
   6. times    K1 and K2 against their twins at the main path's shape,
               timed with CUDA events; the last timed step of each kernel
               is held to its twin's with the bounds of phase 3 (for K2,
-              all 32 one-sample launches of a step).
+              all 32 one-sample launches of a step); ptxas's registers,
+              spills and stack frame of every entry of K1-K5 (the build's
+              log), which the kernels line carries too.
 
 The large-scene path (slice 2: the wide BVH, kernels K3 and K5), over the
 100k-triangle bumpy sphere of ``--scene sphere --scene-tris 100000``:
@@ -184,8 +186,8 @@ its sun map and its two 2048 x 1024 maps:
                  2048 x 1024 (max abs < 3e-5 x the largest texel,
                  probe_envfetch.py:106) and P4's four variants at 32 x 64
                  and 2048 x 1024 (full bitwise P3, half within 1e-3 of it);
-                 K1 and K2 at 128x128 on spheres of 1,012 triangles (the
-                 table in opted-in shared memory) and 2,964 (in tiles);
+                 K1 and K2 at 128x128 on spheres of 2,964 triangles (the
+                 table in opted-in shared memory) and 5,100 (in tiles);
  26. env main    the CLI with --env-map on the Cornell Box at 1024x1024,
                  32 spp, depth 8, 4 steps, with and without --nee --mis
                  --rr (K1 only); the CLI --scene sphere --scene-tris 100000
@@ -221,8 +223,8 @@ the leaf-row probes P2 and P5:
                  the Cornell Box with a glass short box (an MTL the script
                  writes, Ni 1.5 illum 7) through a thin lens focused on its
                  back wall, parity and cosine + RR + NEE + MIS; K1 at
-                 128x128, 4 spp on spheres of 1,012 (opt-in shared
-                 memory) and 2,964 (tiled) triangles of all four
+                 128x128, 4 spp on spheres of 2,964 (opt-in shared
+                 memory) and 5,100 (tiled) triangles of all four
                  materials through the lens; K9 at 128x128, 1 spp on the
                  lit 220k field with GGX and glass balls;
  30. mat main    the CLI --obj glass.obj --lens-radius 0.05 --focus-dist
@@ -403,13 +405,14 @@ ADAPT_CLI = ["--scene", "sphere", "--scene-tris", str(BIG_TRIS),
 # four env/texture rows at BENCH_SIZE^2, 8 spp, BENCH_STEPS timed steps
 # after one warm-up; P3 on FETCH_N directions at each of FETCH_SIZES, P4 at
 # ABLATE_SIZES; K1 and K2 past 480 triangles on spheres of BRUTE_LATS
-# rings (1,012 and 2,964 triangles) at BRUTE_SIZE^2, BRUTE_SPP spp
+# rings (2,964 and 5,100 triangles: the table in opted-in shared memory,
+# past 1,024, and in tiles, past 4,842) at BRUTE_SIZE^2, BRUTE_SPP spp
 ENV_TWIN_SIZE, ENV_TWIN_SPP, ENV_MAIN_STEPS = 256, 8, 4
 BENCH_SIZE, BENCH_STEPS = 512, 3
 FETCH_N = 1 << 20
 FETCH_SIZES = ((32, 64), (128, 256), (256, 512), (1024, 2048))
 ABLATE_SIZES = ((32, 64), (1024, 2048))
-BRUTE_LATS, BRUTE_SIZE, BRUTE_SPP = (23, 39), 128, 4
+BRUTE_LATS, BRUTE_SIZE, BRUTE_SPP = (39, 51), 128, 4
 # a wavefront step against K5's step of the same seed: the same streams,
 # the NEE terms summed in two float orders
 WF_K5_REL_RMSE = 1e-5
@@ -2297,7 +2300,7 @@ def ptxas_numbers(lines):
 
 def two_level_ptxas():
     """ptxas's registers, spills and stack frame of K7, K8 and every K9
-    entry (bvh_regen_kernel over TwoLevelWalk, by its template flags), one
+    entry (regen_walk_kernel over TwoLevelWalk, by its template flags), one
     line each; checks that each was found."""
     flags = ("mirrors", "nee", "img", "mat", "dof")
     found = ptxas_entries("tlas_trace_kernel", "tlas_occlusion_kernel",
@@ -2317,6 +2320,45 @@ def two_level_ptxas():
           and {"K7", "K8"} <= {r[0] for r in rows},
           f"ptxas report on K7, K8 and K9's 10 entries not found: {rows}")
     return rows
+
+
+# the entries of K1-K5 in ptxas's report: (label, a part of the kernel's
+# name as it is mangled that no other kernel's holds: the name with its
+# length, so that "12regen_kernel" is not found in regen_walk_kernel's,
+# or K5's walk type; the kernel's bool template flags in order; the
+# entries the library holds)
+SINGLE_LEVEL_ENTRIES = (
+    ("K1", "12regen_kernel", ("mirrors", "nee", "img", "mat", "dof"), 20),
+    ("K1 tiled", "18regen_tiled_kernel", ("mirrors", "nee", "img", "mat",
+                                          "dof"), 20),
+    ("K2", "11wave_kernel", ("mirrors",), 2),
+    ("K2 tiled", "17wave_tiled_kernel", ("mirrors",), 2),
+    ("K3", "16bvh_trace_kernel", (), 1),
+    ("K4", "20bvh_occlusion_kernel", (), 1),
+    ("K5", "NS_8WideWalkE", ("mirrors", "nee", "img", "mat", "dof"),
+     20),
+)
+
+
+def single_level_ptxas():
+    """ptxas's registers, spills and stack frame of every entry of K1-K5
+    (the brute-force kernels and the single-level walks), one line each;
+    checks that each kernel has all its entries. Returns {kernel: {entry:
+    [registers, spill store B, spill load B, stack frame B]}}."""
+    out = {}
+    for label, key, flags, n in SINGLE_LEVEL_ENTRIES:
+        rows = {}
+        for entry, lines in ptxas_entries(key).items():
+            bits = re.findall(r"Lb([01])", entry)
+            name = " ".join(f"{f}={b}" for f, b in zip(flags, bits))
+            rows[name or "-"] = list(ptxas_numbers(lines))
+        for name, (regs, st, ld, frame) in sorted(rows.items()):
+            print(f"  ptxas {label} {name}: {regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B, stack frame {frame} B")
+        check(len(rows) == n, f"ptxas report on {label}: {len(rows)} of "
+                              f"its {n} entries found")
+        out[label] = rows
+    return out
 
 
 def k6_timing_phase(big):
@@ -2717,7 +2759,7 @@ def env_twin_phase(sphere, tex, maps, tmp):
         table = scene_table(buffers)
         args = dict(cfg=cfg, num_tris=buffers.num_tris, global_shape=(nb, nb),
                     npix=nb * nb, has_mirrors=False)
-        tile = build.table_plan(buffers.num_tris, 20)[0]
+        tile = build.table_plan(buffers.num_tris)[0]
         label = f"{buffers.num_tris} tris ({'tiled' if tile else 'opt-in'})"
         worst["K1"] = max(worst["K1"], compare(
             f"K1 {label}", regen_render(table, 3, 0, **args),
@@ -3164,9 +3206,9 @@ def mat_twin_phase(city, glass, field):
 
 
 def brute_material_twins():
-    """K1 past 2,235 triangles with materials and the lens: spheres of
-    BRUTE_LATS rings (1,012 triangles, the table in opted-in shared
-    memory; 2,964, in tiles) whose faces are in turn diffuse, GGX
+    """K1 past 480 triangles with materials and the lens: spheres of
+    BRUTE_LATS rings (2,964 triangles, the table in opted-in shared
+    memory; 5,100, in tiles) whose faces are in turn diffuse, GGX
     (roughness 0.3), glass and mirror, through a lens focused on the
     sphere, at BRUTE_SIZE^2, BRUTE_SPP spp; returns the largest absolute
     difference."""
@@ -3198,7 +3240,7 @@ def brute_material_twins():
         table = scene_table(buffers)
         args = dict(cfg=cfg, num_tris=t, global_shape=(nb, nb), npix=nb * nb,
                     has_mirrors=True, has_glossy=True, has_diel=True)
-        tile = build.table_plan(t, 20)[0]
+        tile = build.table_plan(t)[0]
         worst = max(worst, compare(
             f"K1 materials + lens, {t} tris ({'tiled' if tile else 'opt-in'})",
             regen_render(table, 3, 0, **args),
@@ -3864,6 +3906,7 @@ def main() -> int:
         launches, _ = main_path_phase(tmp)
     times, worst_main = timing_phase()
     worst = {k: max(worst[k], worst_main[k]) for k in worst}
+    ptxas = single_level_ptxas()
 
     worst.update(bvh_twin_phase(sphere))
     oracle_phase(True)
@@ -3979,11 +4022,17 @@ def main() -> int:
                      glass_dof=(f"{step[:-1]}, glass short box, thin lens "
                                 f"{GLASS_LENS_RADIUS})",
                                 mat_runs["cli_glass"]["K1"],
-                                mat_worst["K1"], mat_times["K1 glass dof"])),
+                                mat_worst["K1"], mat_times["K1 glass dof"]),
+                     ptxas={**ptxas["K1"], **{
+                         f"tiled {k}": v
+                         for k, v in ptxas["K1 tiled"].items()}}),
         kernel_entry("wave_render (K2)", "sfvp_tpu_torch/csrc/wave_render.cu",
                      "sfvp_tpu/kernels/megakernel.py:366",
                      f"{step}: {MAIN_SPP} launches",
-                     launches["K2"], worst["K2"], times["K2"]),
+                     launches["K2"], worst["K2"], times["K2"],
+                     ptxas={**ptxas["K2"], **{
+                         f"tiled {k}": v
+                         for k, v in ptxas["K2 tiled"].items()}}),
         kernel_entry("bvh_trace (K3)", "sfvp_tpu_torch/csrc/bvh_trace.cu",
                      "sfvp_tpu/kernels/bvh_packet.py:394",
                      f"launch on the {BVH_W}x{BVH_H} first-bounce wave "
@@ -3992,14 +4041,15 @@ def main() -> int:
                      textured=(f"launch on the {BVH_W}x{BVH_H} first-bounce "
                                "wave (textured sphere, 22 planes)",
                                env_runs["wavefront_tex_k3"]["K3"],
-                               env_worst["K3"], env_times["K3 tex"])),
+                               env_worst["K3"], env_times["K3 tex"]),
+                     ptxas=ptxas["K3"]),
         kernel_entry("bvh_occlusion (K4)",
                      "sfvp_tpu_torch/csrc/bvh_occlusion.cu",
                      "sfvp_tpu/kernels/bvh_packet.py:635",
                      f"launch on the {BVH_W}x{BVH_H} first-bounce shadow "
                      "wave (city)",
                      nee_runs["renderer_k3k4"]["K4"], nee_worst["K4"],
-                     nee_times["K4"]),
+                     nee_times["K4"], ptxas=ptxas["K4"]),
         kernel_entry("bvh_regen_render (K5)",
                      "sfvp_tpu_torch/csrc/bvh_regen_render.cu",
                      "sfvp_tpu/kernels/megakernel_bvh.py:2326",
@@ -4022,7 +4072,8 @@ def main() -> int:
                          f"step ({CITY2048_W}x{CITY2048_W}, {MAT_SPP} spp, "
                          "bench.py's city_sorted_2048)",
                          mat_runs["renderer_city2048"]["K5"],
-                         mat_worst["K5"], mat_times["K5 glossy city 2048"])),
+                         mat_worst["K5"], mat_times["K5 glossy city 2048"]),
+                     ptxas=ptxas["K5"]),
         dict(kernel_entry("packet_trace2 (K6)",
                      "sfvp_tpu_torch/csrc/packet_trace2.cu",
                      "sfvp_tpu/kernels/bvh_packet2.py:512",

@@ -9,10 +9,12 @@
 //
 // What bounds it on an H100: as for K3 (bvh_trace.cu), dependent node and
 // leaf loads from the L2-resident tree and divergence; its own traffic is
-// 29 bytes a ray. What the simple design does about it: a ray stops at its
+// 29 bytes a ray. What the design does about it: a ray stops at its
 // first hit and carries no payload, and the TPU kernel's packet (every ray
 // of a 1024-ray packet walks any subtree one of them enters) becomes one
-// walk per ray. Left for later work: the ray reordering and persistent
+// walk per ray, which reads half a node row and a leaf slot at a time by
+// 16-byte loads (wide_bvh.cuh; about a third off the city's shadow wave,
+// PERF.md). Left for later work: the ray reordering and persistent
 // threads of K3's list.
 #include "wide_bvh.cuh"
 

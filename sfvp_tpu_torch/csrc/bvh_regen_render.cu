@@ -40,27 +40,29 @@
 // leaf loads from an L2-resident tree, warp divergence), plus the
 // shading arithmetic per segment; K9 adds the instance pops and the
 // object-space rays. Device-memory traffic of its own is 16 bytes per
-// pixel. What the simple design does about it: a thread that ends a path
-// starts the next sample at once, so no lane waits for a wave's longest
-// path; there is no per-bounce relaunch, sort or payload round trip
-// through device memory, which the wavefront route (K3, K7) pays.
-// K9, as measured (NVIDIA H100 80GB HBM3, 700 W; variants of its walk
-// timed against each other by chip_ab.py, PERF.md): its closest-hit
-// walk's row loads bound it, as K7's, and then its registers: the walk's
-// 16-byte loads (two_level.cuh) raised the NEE and material kernels to
-// 96-128 registers, 4-5 blocks an SM. So K9 runs its own kernel,
-// tlas_regen_kernel, bounded to 7 blocks an SM (72 registers, up to ~350
-// bytes of spills, which cost less than the lost warps): the field's step
-// 45.8 -> 35.0 ms, the lit field's 51.3 -> 42.8, the glossy lit field's
-// 84.9 -> 73.3 (bit for bit the same images).
-#include <type_traits>
-
+// pixel. What the design does about it: there is no per-bounce relaunch,
+// sort or payload round trip through device memory, which the wavefront
+// route (K3, K7) pays; a lane whose path ends waits for its warp's lanes
+// to leave the loop over depths, then starts its next sample (K1's one
+// trip a segment, tried here, gained on the sphere and lost on the
+// city). As measured (NVIDIA H100 80GB HBM3, 700 W; variants of the
+// walks timed against each other by chip_ab.py, PERF.md), the walks'
+// row loads bound both kernels, and then their registers: the walks read
+// their rows by 16-byte loads (wide_bvh.cuh, two_level.cuh), which raised
+// the NEE and material kernels to 94-128 registers, 4-5 blocks an SM. So
+// each walk's kernel carries a launch bound (Walk::kMinBlocks): K9's 7
+// blocks an SM (72 registers, up to ~350 bytes of spills, which cost
+// less than the lost warps; the field's step 45.8 -> 35.0 ms, the lit
+// field's 51.3 -> 42.8, the glossy lit field's 84.9 -> 73.3) and K5's 6
+// (80 registers; 5 blocks gained less), bit for bit the same images.
 #include "two_level.cuh"
 
 namespace sfvp {
 
-// The walks of the single-level tree (K5).
+// The walks of the single-level tree (K5). kMinBlocks: the blocks of
+// kBlock threads an SM must hold, K5's launch bound (regen_walk_kernel).
 struct WideWalk {
+  static constexpr int kMinBlocks = 6;
   Wide w;
   template <bool IMG>
   __device__ __forceinline__ bool closest(const Path& q, const Params& p,
@@ -81,8 +83,7 @@ struct WideWalk {
 
 // The walks of the two-level tree (K9), which has neither textures nor an
 // environment map (the wrapper refuses them, ROADMAP.md A.13b).
-// kMinBlocks: the blocks of kBlock threads an SM must hold, K9's launch
-// bound (tlas_regen_kernel).
+// kMinBlocks: K9's launch bound.
 struct TwoLevelWalk {
   static constexpr int kMinBlocks = 7;
   TwoLevel g;
@@ -103,19 +104,17 @@ struct TwoLevelWalk {
   }
 };
 
-// One pixel a thread, its samples back to back: the body of K5's and K9's
-// kernels. MAT (GGX or dielectric faces) and DOF (the thin lens) are
-// compiled only into the kernels of scenes and cameras that have them, as
-// IMG is.
+// One pixel a thread, its samples back to back: K5 over a WideWalk, K9
+// over a TwoLevelWalk, at least Walk::kMinBlocks blocks an SM. MAT (GGX
+// or dielectric faces) and DOF (the thin lens) are compiled only into the
+// kernels of scenes and cameras that have them, as IMG is.
 template <class Walk, bool HAS_MIRRORS, bool NEE, bool IMG, bool MAT,
           bool DOF>
-__device__ __forceinline__ void regen_pixel(const Walk& walk,
-                                            const float* __restrict__ lights,
-                                            const Params& p,
-                                            float* __restrict__ colr,
-                                            float* __restrict__ colg,
-                                            float* __restrict__ colb,
-                                            int* __restrict__ segs_out) {
+__global__ void __launch_bounds__(kBlock, Walk::kMinBlocks)
+regen_walk_kernel(const Walk walk, const float* __restrict__ lights,
+                  const Params p, float* __restrict__ colr,
+                  float* __restrict__ colg, float* __restrict__ colb,
+                  int* __restrict__ segs_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.npix) return;
   const int px = i % p.gw;
@@ -147,33 +146,6 @@ __device__ __forceinline__ void regen_pixel(const Walk& walk,
   segs_out[i] = segs;
 }
 
-// K5: the walks of the single-level tree, no register cap.
-template <class Walk, bool HAS_MIRRORS, bool NEE, bool IMG, bool MAT,
-          bool DOF>
-__global__ void __launch_bounds__(kBlock)
-bvh_regen_kernel(const Walk walk, const float* __restrict__ lights,
-                 const Params p, float* __restrict__ colr,
-                 float* __restrict__ colg, float* __restrict__ colb,
-                 int* __restrict__ segs_out) {
-  regen_pixel<Walk, HAS_MIRRORS, NEE, IMG, MAT, DOF>(walk, lights, p, colr,
-                                                     colg, colb, segs_out);
-}
-
-// K9: the walks of the two-level tree, at least TwoLevelWalk::kMinBlocks
-// blocks an SM, which caps each kernel at 72 registers a thread (see the
-// note above). K5 keeps its own kernel without a bound: any bound, even
-// of one block an SM, changes its registers (PERF.md).
-template <class Walk, bool HAS_MIRRORS, bool NEE, bool IMG, bool MAT,
-          bool DOF>
-__global__ void __launch_bounds__(kBlock, Walk::kMinBlocks)
-tlas_regen_kernel(const Walk walk, const float* __restrict__ lights,
-                  const Params p, float* __restrict__ colr,
-                  float* __restrict__ colg, float* __restrict__ colb,
-                  int* __restrict__ segs_out) {
-  regen_pixel<Walk, HAS_MIRRORS, NEE, IMG, MAT, DOF>(walk, lights, p, colr,
-                                                     colg, colb, segs_out);
-}
-
 }  // namespace sfvp
 
 namespace {
@@ -184,14 +156,9 @@ int launch(const Walk& walk, const float* lights, const sfvp::Params* p,
            float* colr, float* colg, float* colb, int* segs,
            cudaStream_t st) {
   const int blocks = (p->npix + sfvp::kBlock - 1) / sfvp::kBlock;
-  if constexpr (std::is_same<Walk, sfvp::TwoLevelWalk>::value)
-    sfvp::tlas_regen_kernel<Walk, HAS_MIRRORS, NEE, IMG, MAT, DOF>
-        <<<blocks, sfvp::kBlock, 0, st>>>(walk, lights, *p, colr, colg, colb,
-                                           segs);
-  else
-    sfvp::bvh_regen_kernel<Walk, HAS_MIRRORS, NEE, IMG, MAT, DOF>
-        <<<blocks, sfvp::kBlock, 0, st>>>(walk, lights, *p, colr, colg, colb,
-                                           segs);
+  sfvp::regen_walk_kernel<Walk, HAS_MIRRORS, NEE, IMG, MAT, DOF>
+      <<<blocks, sfvp::kBlock, 0, st>>>(walk, lights, *p, colr, colg, colb,
+                                         segs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -64,20 +64,26 @@ struct Params {
 constexpr float kShadowScale = 0.999f;
 constexpr int kBlock = 128;
 
-// The brute-force scene table in shared memory, row-major [row][T]: rows
-// 0..p.rows-1 are the host table's (v0 v1 v2 xyz, Kd, Ke, Ks, mtype,
-// roughness, and on a textured scene u0 v0 u1 v1 u2 v2 texid+1), then the
-// six rows of the edges e1 = v1 - v0 and e2 = v2 - v0, computed once per
-// block (kernels/build.py table_plan sizes it).
+// The brute-force scene table in shared memory: one 12-float record a
+// triangle, v0 xyz, e1 = v1 - v0 and e2 = v2 - v0 (each computed once per
+// block), then three zeros, so that a test reads its triangle by three
+// 16-byte loads (closest_hit, brute_any_hit). The shading of a hit reads
+// the host table's rows from device memory (table_surface), as the tiled
+// kernels do (kernels/build.py table_plan sizes it: 48 bytes a triangle).
+constexpr int kRecord = 12;
+
 __device__ __forceinline__ void load_table(float* tab, const float* table,
                                            const Params& p) {
-  const int T = p.num_tris, R = p.rows;
-  for (int j = threadIdx.x; j < T; j += blockDim.x) {
-    for (int r = 0; r < R; ++r) tab[r * T + j] = table[r * p.tp + j];
+  for (int j = threadIdx.x; j < p.num_tris; j += blockDim.x) {
+    const float* c = table + j;
+    float* rec = tab + kRecord * j;
     for (int a = 0; a < 3; ++a) {
-      tab[(R + a) * T + j] = tab[(3 + a) * T + j] - tab[a * T + j];
-      tab[(R + 3 + a) * T + j] = tab[(6 + a) * T + j] - tab[a * T + j];
+      const float v0 = c[a * p.tp];
+      rec[a] = v0;
+      rec[3 + a] = c[(3 + a) * p.tp] - v0;
+      rec[6 + a] = c[(6 + a) * p.tp] - v0;
     }
+    rec[9] = rec[10] = rec[11] = 0.0f;
   }
 }
 
@@ -196,24 +202,23 @@ __device__ __forceinline__ Path camera_path(int px, int py, int sample,
   return q;
 }
 
-// Moller-Trumbore of a ray against triangle j of a table of stride S whose
-// vertex rows start at v0 (x, y, z) and edge rows at e (e1 xyz, e2 xyz):
-// its t, u, v, and whether the ray's line crosses it. The caller applies
-// its own t window.
-__device__ __forceinline__ bool table_test(const float* v0, const float* e,
-                                           int S, int j, float ox, float oy,
-                                           float oz, float dx, float dy,
-                                           float dz, float det_eps, float& t,
-                                           float& u, float& v) {
-  const float e1x = e[j], e1y = e[S + j], e1z = e[2 * S + j];
-  const float e2x = e[3 * S + j], e2y = e[4 * S + j], e2z = e[5 * S + j];
+// Moller-Trumbore of a ray against the triangle (v0, e1, e2): its t, u, v,
+// and whether the ray's line crosses it (det away from zero, the
+// barycentrics inside). The caller applies its own t window.
+__device__ __forceinline__ bool tri_test(float v0x, float v0y, float v0z,
+                                         float e1x, float e1y, float e1z,
+                                         float e2x, float e2y, float e2z,
+                                         float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         float det_eps, float& t, float& u,
+                                         float& v) {
   const float pvx = dy * e2z - dz * e2y;
   const float pvy = dz * e2x - dx * e2z;
   const float pvz = dx * e2y - dy * e2x;
   const float det = e1x * pvx + e1y * pvy + e1z * pvz;
   const bool nonzero = fabsf(det) > det_eps;
   const float inv_det = nonzero ? 1.0f / det : 0.0f;
-  const float tvx = ox - v0[j], tvy = oy - v0[S + j], tvz = oz - v0[2 * S + j];
+  const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
   u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
   const float qvx = tvy * e1z - tvz * e1y;
   const float qvy = tvz * e1x - tvx * e1z;
@@ -221,6 +226,31 @@ __device__ __forceinline__ bool table_test(const float* v0, const float* e,
   v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
   t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
   return nonzero && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
+}
+
+// tri_test of triangle j of a tile of stride S whose vertex rows start at
+// v0 (x, y, z) and edge rows at e (e1 xyz, e2 xyz).
+__device__ __forceinline__ bool table_test(const float* v0, const float* e,
+                                           int S, int j, float ox, float oy,
+                                           float oz, float dx, float dy,
+                                           float dz, float det_eps, float& t,
+                                           float& u, float& v) {
+  return tri_test(v0[j], v0[S + j], v0[2 * S + j], e[j], e[S + j],
+                  e[2 * S + j], e[3 * S + j], e[4 * S + j], e[5 * S + j], ox,
+                  oy, oz, dx, dy, dz, det_eps, t, u, v);
+}
+
+// tri_test of record j of the shared-memory table, read by three 16-byte
+// loads.
+__device__ __forceinline__ bool record_test(const float* tab, int j,
+                                            float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float det_eps, float& t,
+                                            float& u, float& v) {
+  const float4* r = reinterpret_cast<const float4*>(tab + kRecord * j);
+  const float4 a = r[0], b = r[1], c = r[2];
+  return tri_test(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox, oy, oz,
+                  dx, dy, dz, det_eps, t, u, v);
 }
 
 // Closest hit over triangles k0..k0+n-1 (table index j = k - k0), in
@@ -244,17 +274,27 @@ __device__ __forceinline__ void closest_range(const float* v0, const float* e,
   }
 }
 
-// Closest hit over the whole shared-memory table. Returns the triangle id,
-// or -1 on a miss, and its t, u, v.
+// Closest hit over the whole shared-memory table, in ascending order with
+// a strict t < best, as closest_range. Returns the triangle id, or -1 on a
+// miss, and its t, u, v.
 __device__ __forceinline__ int closest_hit(const float* tab, const Params& p,
                                            const Path& q, float& bt,
                                            float& bu, float& bv) {
-  const int T = p.num_tris;
   bt = __int_as_float(0x7f800000);  // +inf
   bu = 0.0f;
   bv = 0.0f;
   int prim = -1;
-  closest_range(tab, tab + p.rows * T, T, 0, T, p, q, prim, bt, bu, bv);
+  for (int j = 0; j < p.num_tris; ++j) {
+    float t, u, v;
+    if (record_test(tab, j, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, p.det_eps, t,
+                    u, v) &&
+        t > p.t_min && t < p.t_max && t < bt) {
+      bt = t;
+      bu = u;
+      bv = v;
+      prim = j;
+    }
+  }
   return prim;
 }
 
@@ -266,13 +306,10 @@ __device__ __forceinline__ bool brute_any_hit(const float* tab,
                                               float oy, float oz, float dx,
                                               float dy, float dz,
                                               float smax) {
-  const int T = p.num_tris;
-  const float* e = tab + p.rows * T;
   bool hit = false;
-  for (int k = 0; k < T && !hit; ++k) {
+  for (int k = 0; k < p.num_tris && !hit; ++k) {
     float t, u, v;
-    hit = table_test(tab, e, T, k, ox, oy, oz, dx, dy, dz, p.det_eps, t, u,
-                     v) &&
+    hit = record_test(tab, k, ox, oy, oz, dx, dy, dz, p.det_eps, t, u, v) &&
           t > p.t_min && t < smax;
   }
   return hit;
@@ -622,8 +659,8 @@ __device__ __forceinline__ float env_pdf_sa(const Params& p, float dx,
          fmaxf(sinf(theta), 1e-6f);
 }
 
-// The surface of hit (k, u, v) on a table with the host rows (stride S:
-// the shared-memory table, or the host table itself in device memory),
+// The surface of hit (k, u, v) on the host table in device memory (its
+// rows of stride S),
 // its albedo times the map_Kd texel on a textured scene (rows 20-26:
 // per-corner vt interpolated with the barycentrics, texid+1). IMG: the
 // kernel was built for a scene with an environment map or textures; the
@@ -1073,13 +1110,16 @@ __device__ __forceinline__ bool shade_hit(const Params& p,
 }
 
 // One path segment against the brute-force table in shared memory: trace,
-// add its radiance into (cr, cg, cb), then shade; with NEE its shadow rays
-// test the table too. Returns whether the path continues.
+// add its radiance into (cr, cg, cb), then shade from the hit's row of the
+// host table in device memory; with NEE its shadow rays test the shared
+// table too. Returns whether the path continues.
 template <bool HAS_MIRRORS, bool RR_EVERY_DEPTH, bool NEE = false,
           bool IMG = false, bool MAT = false>
-__device__ __forceinline__ bool path_segment(const float* tab, const Params& p,
-                                             int depth, Path& q, float& cr,
-                                             float& cg, float& cb,
+__device__ __forceinline__ bool path_segment(const float* tab,
+                                             const float* __restrict__ table,
+                                             const Params& p, int depth,
+                                             Path& q, float& cr, float& cg,
+                                             float& cb,
                                              const float* lights = nullptr) {
   float t, u, v;
   const int k = closest_hit(tab, p, q, t, u, v);
@@ -1088,7 +1128,7 @@ __device__ __forceinline__ bool path_segment(const float* tab, const Params& p,
     return false;
   }
   // hit shading, ref shaders/closesthit.rchit:43-65
-  const Surface s = table_surface<IMG>(tab, p.num_tris, k, u, v, p);
+  const Surface s = table_surface<IMG>(table, p.tp, k, u, v, p);
   return shade_hit<HAS_MIRRORS, NEE, RR_EVERY_DEPTH, IMG, MAT>(
       p, lights, depth, t, s, q, cr, cg, cb,
       [&](float ox, float oy, float oz, float dx, float dy, float dz,

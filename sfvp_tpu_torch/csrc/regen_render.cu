@@ -20,22 +20,32 @@
 // Each segment's radiance is added straight into the pixel's running total,
 // in the order of megakernel_regen.py:629-631.
 //
-// What bounds it on an H100: arithmetic in the triangle loop. The Cornell
-// Box has 36 triangles and a segment tests all of them at ~30 flops plus
-// one division each; the only device-memory traffic is the scene table
-// (read once per block) and four output words per pixel.
-// What the simple design does about it: the table (26 rows of float32 per
-// triangle, 33 textured) sits in shared memory with its edges precomputed,
-// as dynamic shared memory up to the 227 KB a block may opt in to (2,235
-// triangles, 1,760 textured), so the loop reads broadcast shared words and
-// does no global loads; a thread that finishes a sample starts the next at
-// once, so no lane waits for the longest path of a wave. A larger table
-// goes through shared memory in tiles of p.tile triangles (v0 and the two
-// edges, 9 rows): the block then runs in lockstep, one closest-hit pass
-// and one shadow pass a segment, each over every tile in ascending order
-// (common.cuh tiled_closest, tiled_any_hit), a thread whose sample ends
-// starting its next at once. Not done yet: BVH culling, wgmma or TMA
-// (there is no matrix work), persistent blocks.
+// What bounds it on an H100, as measured (NVIDIA H100 80GB HBM3, 700 W;
+// variants timed against each other by chip_ab.py, PERF.md): the triangle
+// tests. Running the closest-hit loop twice a segment made the parity
+// step 1.88x as long, the shadow scan twice the sky + NEE step 1.52x. Two
+// things held the loop back: a lane whose sample ended waited at the
+// exit of the inner loop over depths for its warp's longest path, and a
+// test read its triangle by nine scalar shared-memory loads from rows
+// [row][T]. What the design does about it: one loop trip a segment, the
+// next sample started in the same trip (regen_kernel), and the table in
+// shared memory as one 12-float record a triangle (v0, e1, e2, three
+// zeros; common.cuh load_table), read by three 16-byte loads, which left
+// the registers as they were (four triangles a 16-byte load, lanes of rows
+// padded to 4, raised them to 90-120 and lost on the shadow scan). The
+// shading reads the hit's row of the host table from device memory
+// through L1, as the tiled kernel does, so 227 KB of shared memory hold
+// 4,842 triangles, textured or not. A warp vote that skips a triangle no
+// lane can hit, unrolling the loop over scalar loads and a 12-block bound
+// were slower. Built with -fmad=false for bitwise parity, every float
+// operation is an instruction of its own: no kernel that keeps the
+// twins' bits can beat twice the bound, which counts a fused multiply-add
+// as two operations. A larger table goes through shared memory in tiles
+// of p.tile triangles (v0 and the two edges, 9 rows): the block then runs
+// in lockstep, one closest-hit pass and one shadow pass a segment, each
+// over every tile in ascending order (common.cuh tiled_closest,
+// tiled_any_hit), a thread whose sample ends starting its next at once.
+// Not done yet: BVH culling, persistent blocks.
 //
 // Next-event estimation (common.cuh nee_direct) adds per hit a binary
 // search of the light CDF and the sampled light's 15 fields, read from
@@ -56,7 +66,7 @@ regen_kernel(const float* __restrict__ table,
              const float* __restrict__ lights, const Params p,
              float* __restrict__ colr, float* __restrict__ colg,
              float* __restrict__ colb, int* __restrict__ segs_out) {
-  extern __shared__ float tab[];
+  extern __shared__ __align__(16) float tab[];
   load_table(tab, table, p);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -64,15 +74,25 @@ regen_kernel(const float* __restrict__ table,
   const int px = i % p.gw;
   const int py = i / p.gw + p.row0;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  int segs = 0;
-  for (int s = 0; s < p.spp; ++s) {
-    Path q = camera_path<DOF>(px, py, s, p);
-    for (int depth = 0; depth < p.max_depth; ++depth) {
-      ++segs;
-      if (!path_segment<HAS_MIRRORS, true, NEE, IMG, MAT>(tab, p, depth, q,
-                                                          cr, cg, cb, lights))
-        break;
-    }
+  // one trip a segment: a sample that ends starts the next in the same
+  // trip, so a warp's lanes trace together instead of waiting at a loop's
+  // exit for the warp's longest path
+  int segs = 0, s = 0, depth = 0;
+  bool live = p.spp > 0 && p.max_depth > 0;
+  Path q;
+  if (live) q = camera_path<DOF>(px, py, 0, p);
+  while (live) {
+    ++segs;
+    if (path_segment<HAS_MIRRORS, true, NEE, IMG, MAT>(tab, table, p, depth,
+                                                       q, cr, cg, cb,
+                                                       lights) &&
+        ++depth < p.max_depth)
+      continue;
+    depth = 0;
+    if (++s < p.spp)
+      q = camera_path<DOF>(px, py, s, p);
+    else
+      live = false;
   }
   colr[i] = cr;
   colg[i] = cg;

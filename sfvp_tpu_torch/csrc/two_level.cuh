@@ -68,47 +68,6 @@ __device__ __forceinline__ Ray local_ray(const TwoLevel& g, int ctx,
       __ldg(tf + 6) * dx + __ldg(tf + 7) * dy + __ldg(tf + 8) * dz);
 }
 
-// n 16-byte loads of lanes p[0 .. 4n) into out[0 .. 4n): p must be
-// 16-byte aligned (kernels/build.py two_level_params checks the tables).
-__device__ __forceinline__ void load_quads(const float* p, float* out,
-                                           int n) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int j = 0; j < n; ++j) {
-    const float4 x = __ldg(q + j);
-    out[4 * j] = x.x;
-    out[4 * j + 1] = x.y;
-    out[4 * j + 2] = x.z;
-    out[4 * j + 3] = x.w;
-  }
-}
-
-// sorted_children of a node row read by 16 16-byte loads, not 64 scalar
-// ones: children 0-3's 8 quads (the six box planes, refs, tags), then
-// children 4-7's, into a register copy laid out as the row, which the
-// slab tests and the network then read as they read a row in shared
-// memory (the same floats, the same operations in the same order).
-__device__ __forceinline__ void sorted_children_quads(const float* row,
-                                                      const Ray& r,
-                                                      float t_min,
-                                                      float limit,
-                                                      int cc[8]) {
-  float n[64];
-  const float4* q = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float4 x = __ldg(q + 2 * a + half);
-      n[8 * a + 4 * half] = x.x;
-      n[8 * a + 4 * half + 1] = x.y;
-      n[8 * a + 4 * half + 2] = x.z;
-      n[8 * a + 4 * half + 3] = x.w;
-    }
-  }
-  sorted_children<SharedRow>(n, r, t_min, limit, cc);
-}
-
 // Closest hit in (t_min, tmax) of one world-space ray. A ray with tmax <=
 // t_min (an inactive one) misses without walking the tree.
 //

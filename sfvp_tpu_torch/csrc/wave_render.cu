@@ -9,13 +9,14 @@
 // sum a pixel's samples in the order the wavefront integrator does and the
 // result matches it sample for sample.
 //
-// What bounds it on an H100: arithmetic in the triangle loop, as in K1
+// What bounds it on an H100: the triangle tests, as in K1
 // (regen_render.cu); memory traffic is four output words per ray. Threads
-// whose path ends early idle until their warp's longest path ends, which is
-// what K1's in-thread regeneration removes.
-// What the simple design does about it: the scene table and its edges sit
-// in shared memory, loaded once per block, up to the 227 KB a block may opt
-// in to (2,235 triangles); nothing else is read. A larger table goes
+// whose path ends early idle until their warp's longest path ends, which
+// is what K1's one-trip-a-segment loop removes and a ray a thread cannot.
+// What the design does about it: K1's shared-memory table, one 12-float
+// record a triangle read by three 16-byte loads, loaded once per block, up
+// to the 227 KB a block may opt in to (4,842 triangles); a hit's shading
+// reads its row of the host table from device memory. A larger table goes
 // through shared memory in tiles (common.cuh tiled_closest), the block in
 // lockstep one segment a round. K2 has neither environment maps nor
 // textures, as sfvp_tpu's chunked kernel (its dispatch routes them to the
@@ -29,7 +30,7 @@ __global__ void __launch_bounds__(kBlock)
 wave_kernel(const float* __restrict__ table, const Params p,
             float* __restrict__ colr, float* __restrict__ colg,
             float* __restrict__ colb, int* __restrict__ segs_out) {
-  extern __shared__ float tab[];
+  extern __shared__ __align__(16) float tab[];
   load_table(tab, table, p);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -43,7 +44,9 @@ wave_kernel(const float* __restrict__ table, const Params p,
   Path q = camera_path(px, py, p.chunk_idx * p.chunk + s, p);
   for (int depth = 0; depth < p.max_depth; ++depth) {
     ++segs;
-    if (!path_segment<HAS_MIRRORS, false>(tab, p, depth, q, cr, cg, cb)) break;
+    if (!path_segment<HAS_MIRRORS, false>(tab, table, p, depth, q, cr, cg,
+                                          cb))
+      break;
   }
   colr[i] = cr;
   colg[i] = cg;

@@ -13,6 +13,18 @@
 // The ray keeps a private stack of child codes (ref+1 for a node, -(ref+1)
 // for a leaf row, the decode of WideBVH.codes) in local memory.
 //
+// What bounds the walks on an H100, as measured (NVIDIA H100 80GB HBM3,
+// 700 W; variants timed against each other by chip_ab.py, PERF.md): their
+// row loads, as in the two-level walk (two_level.cuh). A warp whose lanes
+// pop different rows splits each scalar load into up to 32 requests, and
+// a pop issued 64 of them for a node row and 72 for a leaf row. So both
+// walks read a node row by 16 16-byte loads and a leaf slot's vertices by
+// 3 (load_quads, load_node_half) into a register copy that the unchanged
+// tests read through SharedRow; the any-hit walk holds half a node row at
+// a time: the whole row took K5's NEE kernels from 64 to 113 registers and
+// cost the city's step 18%, half of it to 94 (80 under K5's launch bound,
+// bvh_regen_render.cu).
+//
 // Every expression keeps the operation order of the plain twin
 // (kernels/bvh_packet.py packet_trace_plain), built with -fmad=false: the
 // slab test and Moller-Trumbore of sfvp_tpu/kernels/bvh_packet.py (kernel
@@ -181,6 +193,53 @@ __device__ __forceinline__ void sorted_children(const float* row,
   sort_desc(key, cc);
 }
 
+// n 16-byte loads of lanes p[0 .. 4n) into out[0 .. 4n): p must be
+// 16-byte aligned (kernels/build.py wide_params and two_level_params check
+// the tables).
+__device__ __forceinline__ void load_quads(const float* p, float* out,
+                                           int n) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    const float4 x = __ldg(q + j);
+    out[4 * j] = x.x;
+    out[4 * j + 1] = x.y;
+    out[4 * j + 2] = x.z;
+    out[4 * j + 3] = x.w;
+  }
+}
+
+// The lanes of children 4 half .. 4 half + 3 of a node row (their six box
+// planes, refs and tags) by 8 16-byte loads, into n laid out as the row.
+__device__ __forceinline__ void load_node_half(const float* row, int half,
+                                               float n[64]) {
+  const float4* q = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const float4 x = __ldg(q + 2 * a + half);
+    n[8 * a + 4 * half] = x.x;
+    n[8 * a + 4 * half + 1] = x.y;
+    n[8 * a + 4 * half + 2] = x.z;
+    n[8 * a + 4 * half + 3] = x.w;
+  }
+}
+
+// sorted_children of a node row read by 16 16-byte loads, not 64 scalar
+// ones: children 0-3's 8 quads, then children 4-7's, into a register copy
+// laid out as the row, which the slab tests and the network then read as
+// they read a row in shared memory (the same floats, the same operations
+// in the same order).
+__device__ __forceinline__ void sorted_children_quads(const float* row,
+                                                      const Ray& r,
+                                                      float t_min,
+                                                      float limit,
+                                                      int cc[8]) {
+  float n[64];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) load_node_half(row, half, n);
+  sorted_children<SharedRow>(n, r, t_min, limit, cc);
+}
+
 // Closest hit in (t_min, tmax) of one ray. A ray with tmax <= t_min (an
 // inactive one) misses without walking the tree. Static: each kernel's
 // translation unit keeps its own copy.
@@ -202,13 +261,16 @@ static __device__ __noinline__ WideHit wide_closest_hit(const Wide& w, float ox,
   while (sp > 0) {
     const int code = stack[--sp];
     if (code < 0) {
-      // leaf row: Moller-Trumbore on its 8 slots, strict t < best
+      // leaf row: Moller-Trumbore on its 8 slots, strict t < best, each
+      // slot's 9 vertex lanes by three 16-byte loads
       const int row = -code - 1;
       const float* s = w.tris + (size_t)row * kRowLanes;
       for (int k = 0; k < 8; ++k) {
+        float vtx[12];
+        load_quads(s + 16 * k, vtx, 3);
         float t, u, v;
-        if (slot_test(s + 16 * k, r, w.det_eps, t, u, v) && t > w.t_min &&
-            t < tmax && t < h.t) {
+        if (slot_test<SharedRow>(vtx, r, w.det_eps, t, u, v) &&
+            t > w.t_min && t < tmax && t < h.t) {
           h.t = t;
           h.u = u;
           h.v = v;
@@ -220,8 +282,8 @@ static __device__ __noinline__ WideHit wide_closest_hit(const Wide& w, float ox,
       // internal node: the children entered in [t_min, best], nearest
       // pushed last and popped first
       int cc[8];
-      sorted_children(w.nodes + (size_t)(code - 1) * kRowLanes, r, w.t_min,
-                      fminf(h.t, tmax), cc);
+      sorted_children_quads(w.nodes + (size_t)(code - 1) * kRowLanes, r,
+                            w.t_min, fminf(h.t, tmax), cc);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         if (cc[c] != 0) stack[sp++] = cc[c];
@@ -260,20 +322,31 @@ static __device__ __noinline__ bool wide_any_hit(const Wide& w, float ox,
     if (code < 0) {
       const float* s = w.tris + (size_t)(-code - 1) * kRowLanes;
       for (int k = 0; k < 8; ++k) {
+        float vtx[12];
+        load_quads(s + 16 * k, vtx, 3);
         float t, u, v;
-        if (slot_test(s + 16 * k, r, w.det_eps, t, u, v) && t > w.t_min &&
-            t < smax) {
+        if (slot_test<SharedRow>(vtx, r, w.det_eps, t, u, v) &&
+            t > w.t_min && t < smax) {
           hit = true;
           break;
         }
       }
     } else {
+      // half a row at a time: the whole row in registers raised K5's NEE
+      // kernels from 64 to 113 registers and cost its city step 18%
       const float* row = w.nodes + (size_t)(code - 1) * kRowLanes;
-      for (int c = 0; c < 8; ++c) {
-        const int code_c = child_code(row, c);
-        float tnear;
-        if (code_c != 0 && enters(row, c, r, w.t_min, smax, tnear))
-          stack[sp++] = code_c;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float n[64];
+        load_node_half(row, half, n);
+#pragma unroll
+        for (int c = 4 * half; c < 4 * half + 4; ++c) {
+          const int code_c = child_code<SharedRow>(n, c);
+          float tnear;
+          if (code_c != 0 &&
+              enters<SharedRow>(n, c, r, w.t_min, smax, tnear))
+            stack[sp++] = code_c;
+        }
       }
     }
   }

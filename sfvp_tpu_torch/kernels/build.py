@@ -43,10 +43,11 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 # shared memory a block of K1 or K2 may opt in to on an H100 (227 KB);
-# the table takes its host rows and 6 edge rows per triangle
-# (csrc/common.cuh load_table), a tile 9 rows per triangle (load_tile)
+# the table takes a 12-float record per triangle (csrc/common.cuh
+# load_table: v0, e1, e2 and three zeros), a tile 9 rows per triangle
+# (load_tile)
 MAX_SMEM_BYTES = 232_448
-EDGE_ROWS, TILE_ROWS = 6, 9
+RECORD_FLOATS, TILE_ROWS = 12, 9
 # triangles of a tile, when the whole table does not fit: 36 KB, so that
 # several blocks share an SM
 TILE_TRIS = 1024
@@ -119,12 +120,14 @@ class TwoLevelParams(ctypes.Structure):
         (name, ctypes.c_float) for name in ("t_min", "det_eps")]
 
 
-def table_plan(num_tris: int, rows: int):
+def table_plan(num_tris: int):
     """(tile, shared-memory bytes) of K1 or K2 over a brute-force table of
-    ``rows`` host rows: the whole table and its edges in shared memory
-    (tile 0) when they fit MAX_SMEM_BYTES, else tiles of TILE_TRIS
-    triangles (csrc/common.cuh tiled_closest)."""
-    whole = 4 * (rows + EDGE_ROWS) * num_tris
+    ``num_tris`` triangles: every triangle's record in shared memory (tile
+    0) when they fit MAX_SMEM_BYTES (4,842 triangles), else tiles of
+    TILE_TRIS triangles (csrc/common.cuh tiled_closest). The shading reads
+    the host rows from device memory either way, so the plan does not
+    depend on them."""
+    whole = 4 * RECORD_FLOATS * num_tris
     if whole <= MAX_SMEM_BYTES:
         return 0, whole
     return TILE_TRIS, 4 * TILE_ROWS * TILE_TRIS
@@ -186,7 +189,7 @@ def make_params(cfg: RenderConfig, *, frame: int, row0: int, global_shape,
         uniform_pdf=UNIFORM_PDF,
         use_mis=int((use_nee or use_env_nee) and cfg.use_mis),
         use_env_nee=int(use_env_nee), use_tex=int(textures is not None),
-        rows=rows, tile=table_plan(num_tris, rows)[0],
+        rows=rows, tile=table_plan(num_tris)[0],
         inv_two_pi=INV_TWO_PI, pi=f32(math.pi),
     )
     params.use_mat = int(has_glossy or has_diel)
@@ -366,7 +369,7 @@ def launch(fn_name: str, scene, params: Params, has_mirrors: bool,
         args.append(lights.data_ptr() if params.use_nee else None)
     args += [ctypes.byref(params), int(has_mirrors)]
     if fn_name in ("sfvp_wave_render", "sfvp_regen_render"):
-        args.append(table_plan(params.num_tris, params.rows)[1])
+        args.append(table_plan(params.num_tris)[1])
     with torch.cuda.device(device):
         fn = getattr(library(), fn_name)
         outs = [torch.empty(n_out, dtype=torch.float32, device=device)
@@ -468,8 +471,8 @@ def _check_tables(what: str, max_stack: int, tables, leaf_q: int = 0,
     max_stack within the kernels' stack; for K6 (``leaf_q``), max_stack +
     leaf_q within its packet stack, its shared memory within a block's
     (``packet_smem_plan``); tables 16-byte aligned for K6 (its bulk copies
-    take 16-byte aligned rows) and with ``aligned`` (the two-level
-    closest-hit walk reads its rows by 16-byte loads)."""
+    take 16-byte aligned rows) and with ``aligned`` (the walks read their
+    rows by 16-byte loads)."""
     if leaf_q:
         packet_smem_plan(leaf_q)
     cap = MAX_PACKET_STACK if leaf_q else MAX_WIDE_STACK
@@ -499,15 +502,17 @@ def _check_tables(what: str, max_stack: int, tables, leaf_q: int = 0,
 def wide_params(dw, t_min: float, leaf_q: int = 0) -> WideParams:
     """WideParams of a device BVH (kernels/bvh_packet.py DeviceWide) on a
     CUDA device, after ``_check_tables`` (for K6 with its ``leaf_q``; a
-    textured tree's ``tris_aux`` rows with its leaf rows). ``.device`` and
-    the payload's plane count ``.n_payload`` ride along for the launch."""
+    textured tree's ``tris_aux`` rows with its leaf rows), each table
+    16-byte aligned for the walks' 16-byte row loads (csrc/wide_bvh.cuh).
+    ``.device`` and the payload's plane count ``.n_payload`` ride along
+    for the launch."""
     tables = [("nodes", dw.nodes), ("tris", dw.tris)]
     if dw.tris_aux is not None:
         if dw.tris_aux.shape != dw.tris.shape:
             raise ValueError(f"tris_aux {tuple(dw.tris_aux.shape)} beside "
                              f"tris {tuple(dw.tris.shape)}")
         tables.append(("tris_aux", dw.tris_aux))
-    _check_tables("wide BVH", dw.max_stack, tables, leaf_q)
+    _check_tables("wide BVH", dw.max_stack, tables, leaf_q, aligned=True)
     wp = WideParams(nodes=dw.nodes.data_ptr(), tris=dw.tris.data_ptr(),
                     n_nodes=dw.nodes.shape[0], n_leaf_rows=dw.tris.shape[0],
                     max_stack=dw.max_stack, t_min=f32(t_min),

@@ -302,16 +302,14 @@ def test_torch_textured_routes(tmp_path, capfd, monkeypatch):
 
 def test_torch_table_plan():
     """The whole table sits in shared memory while it fits the 227 KB a
-    block may opt in to (26 rows per triangle: 2,235; 33 textured: 1,760);
-    beyond, tiles of 1,024 triangles (9 rows)."""
-    assert build.table_plan(36, 20) == (0, 36 * 26 * 4)
-    assert build.table_plan(1000, 20) == (0, 1000 * 26 * 4)
-    assert 1000 * 26 * 4 > 48 * 1024  # the opt-in path
-    assert build.table_plan(2235, 20)[0] == 0
-    assert build.table_plan(2236, 20) == (1024, 1024 * 9 * 4)
-    assert build.table_plan(1760, 27)[0] == 0
-    assert build.table_plan(1761, 27)[0] == 1024
-    assert build.table_plan(3000, 20) == (1024, 1024 * 9 * 4)
+    block may opt in to (a 12-float record per triangle, textured or not:
+    4,842); beyond, tiles of 1,024 triangles (9 rows)."""
+    assert build.table_plan(36) == (0, 36 * 12 * 4)
+    assert build.table_plan(3000) == (0, 3000 * 12 * 4)
+    assert 3000 * 12 * 4 > 48 * 1024  # the opt-in path
+    assert build.table_plan(4842)[0] == 0
+    assert build.table_plan(4843) == (1024, 1024 * 9 * 4)
+    assert build.table_plan(6000) == (1024, 1024 * 9 * 4)
 
 
 def _big_brute(n_lat):
@@ -339,11 +337,11 @@ def test_torch_brute_route_past_480_triangles(kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_lat", [23, 39], ids=["opt_in", "tiled"])
+@pytest.mark.parametrize("n_lat", [39, 51], ids=["opt_in", "tiled"])
 @pytest.mark.parametrize("kernel", ["K1", "K2"])
 def test_cuda_brute_past_480_triangles_matches_twin(kernel, n_lat):
-    """K1 and K2 against their twins on ~1,000 triangles (the table in
-    opted-in shared memory) and ~3,000 (in tiles) at 64x64."""
+    """K1 and K2 against their twins on ~3,000 triangles (the table in
+    opted-in shared memory) and ~5,100 (in tiles) at 64x64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this on the card")
     _, tb = _big_brute(n_lat)

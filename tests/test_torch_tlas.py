@@ -66,6 +66,7 @@ from sfvp_tpu_torch.dispatch import select_instanced_render_step  # noqa: E402
 from sfvp_tpu_torch.kernels import build  # noqa: E402
 from sfvp_tpu_torch.kernels.bvh_packet import (  # noqa: E402
     INSTANCE_CODE_BASE,
+    DeviceWide,
     _leaf_tests,
     _node_children,
     ray_planes,
@@ -615,6 +616,25 @@ def test_two_level_params_refuses_unaligned_tables(table):
         with pytest.raises(ValueError, match=f"{table} must start on a "
                                              "16-byte boundary"):
             build.two_level_params(tree(**{table: off}), T_MIN)
+
+
+@pytest.mark.parametrize("table", ["nodes", "tris", "tris_aux"])
+def test_wide_params_refuses_unaligned_tables(table):
+    """The single-level walks read node rows and leaf slots by 16-byte
+    loads (csrc/wide_bvh.cuh), so wide_params refuses a table that does
+    not start on a 16-byte boundary, and takes aligned ones."""
+    ptrs = dict(nodes=0x10000, tris=0x20000, tris_aux=0x30000)
+
+    def tree(**shift):
+        return DeviceWide(**{k: _FakeCudaTable(4, p + shift.get(k, 0))
+                             for k, p in ptrs.items()}, max_stack=40)
+
+    wp = build.wide_params(tree(), T_MIN)
+    assert (wp.nodes, wp.tris, wp.aux) == tuple(ptrs.values())
+    for off in (4, 8, 12):
+        with pytest.raises(ValueError, match=f"{table} must start on a "
+                                             "16-byte boundary"):
+            build.wide_params(tree(**{table: off}), T_MIN)
 
 
 @pytest.mark.cuda
