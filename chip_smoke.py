@@ -85,9 +85,13 @@ three meshes, 211,878 triangles flattened) and the lit field (the same
 and a lamp instance, cosine + RR + NEE + MIS):
  17. tlas twins  K7 against its twin on a 256x256 camera wave, a bounce
                  wave and a random wave (at least 99.99% of rays on the
-                 same triangle, every plane equal there); K8 on every ray
-                 of the lit field's first two shadow waves and a random
-                 wave; K9 at 128x128, 1 spp, depth 8 on both fields;
+                 same triangle, every plane equal there), on the field
+                 and on a stress field of 200 small overlapping
+                 instances; K8 on every ray of the lit field's first two
+                 shadow waves, a random wave, a random wave with 90% of
+                 its rays inactive, and the stress field's first shadow
+                 wave and a random wave; K9 at 128x128, 1 spp, depth 8 on
+                 the field, the lit field and the stress field;
  18. tlas cross  K9 against the wavefront loop over K7 at 256x256, 8 spp
                  (relative RMSE <= 1e-5, equal segments); K9 on the
                  instances against K5 on the flattened scene (image means
@@ -103,7 +107,9 @@ and a lamp instance, cosine + RR + NEE + MIS):
  20. tlas times  K9 per step on both fields, K7 per launch on the first-
                  and third-bounce waves, K8 on the lit field's first-bounce
                  shadow wave, CUDA events, each beside its twin and its
-                 bound; K9 held to its twin at 1024x1024 x 8 spp on both.
+                 bound (K8's also beside the pops of the same walk with
+                 its children pushed nearest first); K9 held to its twin
+                 at 1024x1024 x 8 spp on both.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35
 TB/s and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's
@@ -367,6 +373,9 @@ TLAS_CROSS_SIZE, TLAS_CROSS_SPP = 256, 8
 # ball meshes with overlapping boxes, the ground and the lamp
 # (stress_instances), from STRESS_SEED
 STRESS_INST, STRESS_SEED = 200, 5
+# phase 17's K8 wave of mostly inactive rays: the share of rays with no
+# window (the lit field's first-bounce shadow wave has ~43%)
+K8_IDLE = 0.9
 # K9 on the instances against K5 on the flattened scene: the two differ by
 # object-space rounding (tests/test_tlas.py:82), which moves a few paths:
 # image means within K9_K5_MEAN (relative), fewer than K9_K5_OFF_FRAC of
@@ -1351,6 +1360,33 @@ def compare_occlusion(kernel, label, tree, t_min, rays, got=None,
     return float((got.float() - exp.float()).abs().max())
 
 
+def nearest_first_pops(dt, t_min, rays):
+    """The answers and pops of the two-level any-hit walk with each node's
+    children pushed nearest first (the closest hit's order) in place of
+    slot order: K8's twin's walk with the ordered child network. The
+    answer of an any-hit walk does not depend on its order; its pops do."""
+    from sfvp_tpu_torch.kernels import bvh_tlas
+    from sfvp_tpu_torch.kernels.bvh_packet import _leaf_tests, _node_children
+    from sfvp_tpu_torch.utils.vec import f32
+
+    t_min = f32(t_min)
+    n = rays.shape[1]
+    inf = torch.full((n,), float("inf"), device=rays.device)
+    occ = torch.zeros(n, dtype=torch.bool, device=rays.device)
+    counts = {}
+
+    def leaf(li, lrow, ray, ctx):
+        hit = li[torch.isfinite(_leaf_tests(dt.tris, lrow, ray, inf[li])[1])]
+        occ[hit] = True
+        return hit
+
+    def node(ni, node_row, ray):
+        return _node_children(dt.nodes, node_row, ray, inf[ni], t_min)
+
+    bvh_tlas._walk(dt, t_min, rays, counts, leaf, node)
+    return occ, counts
+
+
 def nee_twin_phase(city):
     from sfvp_tpu_torch import RenderConfig
     from sfvp_tpu_torch.accel.wide import build_wide_from_buffers
@@ -1699,9 +1735,10 @@ def two_level_nbytes(tl):
             + tl.inst.shape[0] * 25) * 4
 
 
-def random_rays(m, seed, shadow=False):
+def random_rays(m, seed, shadow=False, idle=0.1):
     """(7, m) planes of random rays over the field (origins above the
-    ground); with ``shadow``, random windows and 10% inactive rays."""
+    ground); with ``shadow``, random windows and a share ``idle`` of
+    inactive rays."""
     from sfvp_tpu_torch.kernels.bvh_packet import ray_planes
 
     g = np.random.default_rng(seed)
@@ -1715,7 +1752,7 @@ def random_rays(m, seed, shadow=False):
         return ray_planes(tuple(o), tuple(d), 1e4)
     tmax = torch.tensor(g.uniform(0.0, 12.0, m), dtype=torch.float32,
                         device=DEVICE)
-    active = torch.tensor(g.uniform(size=m) > 0.1, device=DEVICE)
+    active = torch.tensor(g.uniform(size=m) > idle, device=DEVICE)
     return ray_planes(tuple(o), tuple(d), tmax, active)
 
 
@@ -1758,10 +1795,18 @@ def tlas_twin_phase(field, lit):
                                 ("random", rand()))])
     first, second = capture_waves(dataclasses.replace(lit["cfg"], **wave),
                                   lit, (0, 1), shadow=True)
-    worst["K8"] = max(compare_occlusion("K8", label, lit["dt"], t_min, rays)
-                      for label, rays in (
-                          ("first bounce", first), ("second bounce", second),
-                          ("random", random_rays(size * size, 1, True))))
+    stress_first = capture_waves(dataclasses.replace(stress["cfg"], **wave),
+                                 stress, (0,), shadow=True)[0]
+    worst["K8"] = max(compare_occlusion("K8", label, s["dt"], t_min, rays)
+                      for label, s, rays in (
+                          ("first bounce", lit, first),
+                          ("second bounce", lit, second),
+                          ("random", lit, random_rays(size * size, 1, True)),
+                          ("mostly idle", lit, random_rays(
+                              size * size, 3, True, idle=K8_IDLE)),
+                          ("stress first", stress, stress_first),
+                          ("stress random", stress,
+                           stress_rays(size * size, 4))))
     worst["K9"] = 0.0
     for case, s in (("field", field), ("lit field", lit),
                     ("stress field", stress)):
@@ -1956,6 +2001,11 @@ def tlas_timing_phase(field, lit):
             mx = compare_occlusion(kernel, label, dt, t_min, rays, got=got,
                                    exp=exp)
             ops, per_ray = traversal_ops(counts, sort=False), 7 * 4 + 1
+            occ, near = nearest_first_pops(dt, t_min, rays)
+            check(torch.equal(occ, exp), "the nearest-first any-hit walk "
+                                         "disagrees with K8's twin")
+            print(f"  {kernel} {label}: pushed nearest first, the same "
+                  f"answers and pops {near}")
         worst[kernel] = max(worst.get(kernel, 0.0), mx)
         b = bound(ops, two_level_nbytes(s["tl"]) + rays.shape[1] * per_ray)
         print(f"  {kernel} {label}: {int((rays[6] > t_min).sum())} active "

@@ -55,6 +55,11 @@
 // less than the lost warps; the field's step 45.8 -> 35.0 ms, the lit
 // field's 51.3 -> 42.8, the glossy lit field's 84.9 -> 73.3) and K5's 6
 // (80 registers; 5 blocks gained less), bit for bit the same images.
+// K9's shadow walks were ~39% of the lit step and ~21% of the glossy one
+// (run twice a shadow ray, they added that much to each); the
+// any-hit walk with the closest hit's 16-byte loads, one stack and
+// folded instance pops took them 43.1 -> 39.1 and 73.9 -> 68.4 ms, and
+// 7 blocks an SM still beat 6 and 8.
 #include "two_level.cuh"
 
 namespace sfvp {
@@ -82,8 +87,9 @@ struct WideWalk {
 };
 
 // The walks of the two-level tree (K9), which has neither textures nor an
-// environment map (the wrapper refuses them, ROADMAP.md A.13b).
-// kMinBlocks: K9's launch bound.
+// environment map (the wrapper refuses them, ROADMAP.md A.13b): the
+// closest hit and, for the shadow rays, the any-hit walk of K8's threads
+// (two_level.cuh), one ray a call. kMinBlocks: K9's launch bound.
 struct TwoLevelWalk {
   static constexpr int kMinBlocks = 7;
   TwoLevel g;

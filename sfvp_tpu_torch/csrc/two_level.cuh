@@ -7,18 +7,19 @@
 //
 //   - every stack entry lives in an instance context, the instance whose
 //     object space it is in (-1 = the TLAS, world space); the start state
-//     is the TLAS root in world space. The any-hit walk keeps a stack of
-//     contexts beside its stack of codes, as the twins do; the closest-hit
-//     walk derives an entry's context from its stack index (see there);
+//     is the TLAS root in world space. The twins keep a stack of contexts
+//     beside the stack of codes; both walks here derive an entry's
+//     context from its stack index (two_level_closest_hit says how);
 //   - at each pop the ray in the popped entry's space, from the instance
-//     row's inverse transform (lanes 0-11), o' = iR o + it and d' = iR d,
-//     left to right; the direction is NOT renormalised, so t stays in
-//     world measure and the best t prunes across instances. Consecutive
-//     pops mostly share their context, so the ray is re-derived only when
-//     the context changes (the same floats either way);
+//     row's inverse transform (lanes 0-11, three 16-byte loads), o' = iR o
+//     + it and d' = iR d, left to right; the direction is NOT
+//     renormalised, so t stays in world measure and the best t prunes
+//     across instances. Consecutive pops mostly share their context, so
+//     the ray is re-derived only when the context changes (the same floats
+//     either way);
 //   - an instance code stands for the instance's BLAS root (lane 24) under
-//     the instance's context, with no box test: the any-hit walk pushes
-//     the root, the closest-hit walk expands it at once;
+//     the instance's context, with no box test: the twins push the root,
+//     both walks here expand it in the instance pop's trip;
 //   - the winning triangle's object-space vertices go to world space once,
 //     after the walk, with the instance's forward transform (lanes 12-23),
 //     x' = R0 x + R1 y + R2 z + t0: the order of both TPU forms
@@ -28,8 +29,10 @@
 //
 // Every expression keeps the operation order of the plain twins
 // (kernels/bvh_tlas.py), built with -fmad=false, and each walk pops the
-// twins' entries in their order, so kernels and twins agree bit for bit.
-// Each walk has one exit (a flag and a break), as wide_any_hit must.
+// twins' entries in their order, so kernels and twins agree bit for bit
+// (an any-hit walk's answer would not depend on its order; the order
+// kept is the twins' all the same). Each walk has one exit (a flag and a
+// break), as wide_any_hit must.
 #pragma once
 
 #include "wide_bvh.cuh"
@@ -53,19 +56,20 @@ struct TwoLevelHit {
 };
 
 // The world ray (o, d) in the object space of instance ctx (ctx < 0: world
-// space, the ray as it is).
+// space, the ray as it is), the transform's 12 lanes read by three 16-byte
+// loads (build.two_level_params checks that the table is aligned).
 __device__ __forceinline__ Ray local_ray(const TwoLevel& g, int ctx,
                                          float ox, float oy, float oz,
                                          float dx, float dy, float dz) {
   if (ctx < 0) return make_ray(ox, oy, oz, dx, dy, dz);
-  const float* tf = g.inst + (size_t)ctx * kRowLanes;
-  return make_ray(
-      __ldg(tf + 0) * ox + __ldg(tf + 1) * oy + __ldg(tf + 2) * oz + __ldg(tf + 9),
-      __ldg(tf + 3) * ox + __ldg(tf + 4) * oy + __ldg(tf + 5) * oz + __ldg(tf + 10),
-      __ldg(tf + 6) * ox + __ldg(tf + 7) * oy + __ldg(tf + 8) * oz + __ldg(tf + 11),
-      __ldg(tf + 0) * dx + __ldg(tf + 1) * dy + __ldg(tf + 2) * dz,
-      __ldg(tf + 3) * dx + __ldg(tf + 4) * dy + __ldg(tf + 5) * dz,
-      __ldg(tf + 6) * dx + __ldg(tf + 7) * dy + __ldg(tf + 8) * dz);
+  float m[12];
+  load_quads(g.inst + (size_t)ctx * kRowLanes, m, 3);
+  return make_ray(m[0] * ox + m[1] * oy + m[2] * oz + m[9],
+                  m[3] * ox + m[4] * oy + m[5] * oz + m[10],
+                  m[6] * ox + m[7] * oy + m[8] * oz + m[11],
+                  m[0] * dx + m[1] * dy + m[2] * dz,
+                  m[3] * dx + m[4] * dy + m[5] * dz,
+                  m[6] * dx + m[7] * dy + m[8] * dz);
 }
 
 // Closest hit in (t_min, tmax) of one world-space ray. A ray with tmax <=
@@ -147,61 +151,87 @@ static __device__ __noinline__ TwoLevelHit two_level_closest_hit(
   return h;
 }
 
-// Whether a triangle lies in (t_min, smax) along a world-space ray: the
-// walk of two_level_closest_hit with the window fixed at [t_min, smax],
+// One pop of the any-hit walk of a world-space ray (o, d) in the window
+// (t_min, smax): the walk of two_level_closest_hit with the window fixed,
 // every child box the ray enters pushed in slot order (sfvp_tpu's
-// make_two_level_occlusion), ending at the first hit, with one exit. A ray
-// with smax <= t_min walks nothing. K9 calls it after two_level_closest_hit
-// has returned, so the two frames take the same place on the call stack.
+// make_two_level_occlusion), ending at the first hit (``hit``). The
+// walk's state is the caller's: its stack, sp, base and id (the context
+// rule of two_level_closest_hit), cur and r (the ray in context cur).
+// Node rows are read half a row at a time by 8 16-byte loads (a whole row
+// in registers raised K5's NEE kernels to 113 registers, wide_bvh.cuh),
+// leaf slots by 3. Shared by two_level_any_hit (K9's shadow rays) and
+// K8's kernel, whose threads keep the state across rays.
+__device__ __forceinline__ void any_hit_pop(const TwoLevel& g, int* stack,
+                                            int& sp, int& base, int& id,
+                                            int& cur, Ray& r, float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float smax,
+                                            bool& hit) {
+  --sp;
+  int code = stack[sp];
+  int ctx = id;
+  if (sp < base) {
+    ctx = -1;
+    base = kMaxStack;
+  }
+  if (code < 0 && -code - 1 >= kInstBase) {
+    id = ctx = -code - 1 - kInstBase;
+    base = sp;
+    code = (int)__ldg(g.inst + (size_t)id * kRowLanes + 24) + 1;
+  }
+  if (ctx != cur) {
+    r = local_ray(g, ctx, ox, oy, oz, dx, dy, dz);
+    cur = ctx;
+  }
+  if (code < 0) {
+    const float* s = g.tris + (size_t)(-code - 1) * kRowLanes;
+    for (int k = 0; k < 8; ++k) {
+      float vtx[12];
+      load_quads(s + 16 * k, vtx, 3);
+      float t, u, v;
+      if (slot_test<SharedRow>(vtx, r, g.det_eps, t, u, v) && t > g.t_min &&
+          t < smax) {
+        hit = true;
+        break;
+      }
+    }
+  } else {
+    const float* row = g.nodes + (size_t)(code - 1) * kRowLanes;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float n[64];
+      load_node_half(row, half, n);
+#pragma unroll
+      for (int c = 4 * half; c < 4 * half + 4; ++c) {
+        const int code_c = child_code<SharedRow>(n, c);
+        float tnear;
+        if (code_c != 0 && enters<SharedRow>(n, c, r, g.t_min, smax, tnear))
+          stack[sp++] = code_c;
+      }
+    }
+  }
+}
+
+// Whether a triangle lies in (t_min, smax) along a world-space ray, by
+// any_hit_pop until the stack is empty or a hit is found, with one exit.
+// A ray with smax <= t_min walks nothing. K9 calls it after
+// two_level_closest_hit has returned, so the two frames take the same
+// place on the call stack.
 static __device__ __noinline__ bool two_level_any_hit(
     const TwoLevel& g, float ox, float oy, float oz, float dx, float dy,
     float dz, float smax) {
   if (!(smax > g.t_min)) return false;
-  int stack[kMaxStack], ctxs[kMaxStack];
-  stack[0] = 1;
-  ctxs[0] = -1;
+  int stack[kMaxStack];
+  stack[0] = 1;  // the TLAS root, internal node 0, in world space
   int sp = 1;
+  int base = kMaxStack;
+  int id = -1;
   int cur = -1;
   Ray r = local_ray(g, -1, ox, oy, oz, dx, dy, dz);
   bool hit = false;
-  while (sp > 0 && !hit) {
-    --sp;
-    const int code = stack[sp], ctx = ctxs[sp];
-    const int neg = -code - 1;
-    if (code < 0 && neg >= kInstBase) {
-      const int id = neg - kInstBase;
-      stack[sp] = (int)__ldg(g.inst + (size_t)id * kRowLanes + 24) + 1;
-      ctxs[sp] = id;
-      ++sp;
-    } else {
-      if (ctx != cur) {
-        r = local_ray(g, ctx, ox, oy, oz, dx, dy, dz);
-        cur = ctx;
-      }
-      if (code < 0) {
-        const float* s = g.tris + (size_t)neg * kRowLanes;
-        for (int k = 0; k < 8; ++k) {
-          float t, u, v;
-          if (slot_test(s + 16 * k, r, g.det_eps, t, u, v) && t > g.t_min &&
-              t < smax) {
-            hit = true;
-            break;
-          }
-        }
-      } else {
-        const float* row = g.nodes + (size_t)(code - 1) * kRowLanes;
-        for (int c = 0; c < 8; ++c) {
-          const int code_c = child_code(row, c);
-          float tnear;
-          if (code_c != 0 && enters(row, c, r, g.t_min, smax, tnear)) {
-            stack[sp] = code_c;
-            ctxs[sp] = ctx;
-            ++sp;
-          }
-        }
-      }
-    }
-  }
+  while (sp > 0 && !hit)
+    any_hit_pop(g, stack, sp, base, id, cur, r, ox, oy, oz, dx, dy, dz, smax,
+                hit);
   return hit;
 }
 

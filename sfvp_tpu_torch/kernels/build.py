@@ -315,10 +315,13 @@ def library() -> ctypes.CDLL:
                        ctypes.POINTER(Params), ctypes.c_int, *outs]
     for fn, tree in ((lib.sfvp_bvh_trace, WideParams),
                      (lib.sfvp_bvh_occlusion, WideParams),
-                     (lib.sfvp_tlas_trace, TwoLevelParams),
-                     (lib.sfvp_tlas_occlusion, TwoLevelParams)):
+                     (lib.sfvp_tlas_trace, TwoLevelParams)):
         fn.argtypes = [ctypes.POINTER(tree), ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    # K8 takes its ray counter after the ray count
+    lib.sfvp_tlas_occlusion.argtypes = [
+        ctypes.POINTER(TwoLevelParams), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     # K6 takes the leaf queue's capacity and its dynamic shared memory
     # after the ray count
     lib.sfvp_packet_trace2.argtypes = [
@@ -383,11 +386,12 @@ def launch(fn_name: str, scene, params: Params, has_mirrors: bool,
 
 
 def _launch_wave(fn_name: str, wp, rays, out, *extra):
-    """Launch a per-ray BVH kernel (K3, K4 with WideParams; K7, K8 with
-    TwoLevelParams), or K6 with ``extra`` = (leaf_q, its dynamic shared
-    memory), or P1 with ``extra`` = (variant, counts), over the (7, N) ray
-    planes into ``out`` on the current stream of the rays' device. N goes
-    to the kernel as a C int, so a wave holds fewer than 2**31 rays."""
+    """Launch a per-ray BVH kernel (K3, K4 with WideParams; K7, and K8
+    with ``extra`` = (its ray counter,), with TwoLevelParams), or K6 with
+    ``extra`` = (leaf_q, its dynamic shared memory), or P1 with ``extra``
+    = (variant, counts), over the (7, N) ray planes into ``out`` on the
+    current stream of the rays' device. N goes to the kernel as a C int,
+    so a wave holds fewer than 2**31 rays."""
     n = rays.shape[1]
     if n >= MAX_WAVE_RAYS:
         raise ValueError(f"a wave holds fewer than {MAX_WAVE_RAYS} rays "
@@ -454,9 +458,12 @@ def launch_tlas_trace(tp: "TwoLevelParams", rays):
 
 
 def launch_tlas_occlusion(tp: "TwoLevelParams", rays):
-    """K8: (7, N) world-space ray planes in, (N,) bool out."""
+    """K8: (7, N) world-space ray planes in, (N,) bool out. Its threads
+    take their rays from a counter, a zeroed int32 of the launch's own."""
+    counter = torch.zeros(1, dtype=torch.int32, device=rays.device)
     return _launch_wave("sfvp_tlas_occlusion", tp, rays, torch.empty(
-        rays.shape[1], dtype=torch.bool, device=rays.device))
+        rays.shape[1], dtype=torch.bool, device=rays.device),
+        counter.data_ptr())
 
 
 def check_launch(fn_name: str, err: int) -> None:

@@ -652,6 +652,11 @@ def test_cuda_k7_k8_match_twins(name):
     assert same_triangle(got, want).mean() >= 0.9999
     assert torch.equal(two_level_occlusion(gpu, T_MIN, rays.cuda()).cpu(),
                        two_level_occlusion_plain(s["dt"], T_MIN, rays))
+    # K8 on a wave whose rays are mostly inactive
+    idle = ray_planes(_cols(o), _cols(d), torch.from_numpy(tmax),
+                      torch.from_numpy(active) & (torch.arange(8192) % 8 == 0))
+    assert torch.equal(two_level_occlusion(gpu, T_MIN, idle.cuda()).cpu(),
+                       two_level_occlusion_plain(s["dt"], T_MIN, idle))
 
 
 @pytest.mark.cuda
